@@ -1,0 +1,178 @@
+"""Carry weights into the port.
+
+Two sources, each turned into a port ``state_dict``:
+
+  * the JAX package's Flax parameter trees (numpy leaves):
+    :func:`unet_from_jax`, :func:`dt_from_jax`. Conv kernels go HWIO -> OIHW,
+    Dense kernels are transposed, and the state encoder's dense kernel is
+    permuted from the NHWC flatten of the JAX model to the NCHW flatten of
+    the port.
+  * the reference's published PyTorch checkpoints (``unet-nm.pt``,
+    ``model_experiment_{1,2}.pt``): :func:`unet_from_reference`,
+    :func:`dt_from_reference`. Only key names change.
+
+Every converter is strict: a missing or unconsumed key raises.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig
+from ..models.decision_transformer import state_conv_hw
+
+
+def _t(a) -> torch.Tensor:
+    """A float32 tensor copy of a numpy array or tensor."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(torch.float32).clone()
+    return torch.tensor(np.array(a, dtype=np.float32))
+
+
+def _conv(k) -> torch.Tensor:
+    """Flax HWIO conv kernel -> torch OIHW."""
+    return _t(np.transpose(np.asarray(k), (3, 2, 0, 1)))
+
+
+def _dense(k) -> torch.Tensor:
+    """Flax (in, out) dense kernel -> torch (out, in)."""
+    return _t(np.transpose(np.asarray(k)))
+
+
+def _check_keys(got: Mapping[str, Any], want: Mapping[str, Any],
+                what: str) -> None:
+    missing = sorted(set(want) - set(got))
+    extra = sorted(set(got) - set(want))
+    if missing or extra:
+        raise ValueError(f"{what}: missing keys {missing}, "
+                         f"unexpected keys {extra}")
+
+
+def _strip(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """Drop the prefixes torch.compile and DDP wrappers add."""
+    return {k.removeprefix("module.").removeprefix("_orig_mod."): v
+            for k, v in sd.items()}
+
+
+# --- U-Net ---------------------------------------------------------------
+
+def unet_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``UNetDenoiser`` params ``{'net': {block: {convI: ...}}}`` ->
+    port ``UNetDenoiser`` state dict."""
+    sd = {}
+    for block, convs in params["net"].items():
+        if block == "outc":
+            sd["net.outc.weight"] = _conv(convs["kernel"])
+            sd["net.outc.bias"] = _t(convs["bias"])
+            continue
+        for conv, leaf in convs.items():
+            sd[f"net.{block}.{conv}.weight"] = _conv(leaf["kernel"])
+            sd[f"net.{block}.{conv}.bias"] = _t(leaf["bias"])
+    return sd
+
+
+_UNET_REF = re.compile(
+    r"(inc|down\d|up\d)\.(?:conv|mpconv\.1)\.conv-(\d)\.conv2d\.(weight|bias)")
+
+
+def unet_from_reference(state_dict: Mapping[str, Any]
+                        ) -> Dict[str, torch.Tensor]:
+    """Reference U-Net ``state_dict`` (``inc.conv.conv-{i}.conv2d.*``,
+    ``down{k}.mpconv.1.conv-{i}.conv2d.*``, ``up{k}.conv.conv-{i}.conv2d.*``,
+    ``outc.conv.*``; an optional ``net.`` prefix) -> port state dict."""
+    sd = {}
+    for key, v in _strip(state_dict).items():
+        key = key.removeprefix("net.")
+        if key in ("outc.conv.weight", "outc.conv.bias"):
+            sd["net.outc." + key.rsplit(".", 1)[1]] = _t(v)
+            continue
+        m = _UNET_REF.fullmatch(key)
+        if m is None:
+            raise ValueError(f"unrecognized U-Net checkpoint key: {key}")
+        sd[f"net.{m.group(1)}.conv{m.group(2)}.{m.group(3)}"] = _t(v)
+    return sd
+
+
+# --- Decision Transformer ------------------------------------------------
+
+def dt_from_jax(params: Mapping[str, Any], cfg: ModelConfig
+                ) -> Dict[str, torch.Tensor]:
+    """JAX ``DecisionTransformer`` params -> port state dict."""
+    sd = {
+        "time_embed.weight": _t(params["time_embed"]["embedding"]),
+        "task_embed.weight": _t(params["task_embed"]["embedding"]),
+        "layer_n.weight": _t(params["layer_n"]["scale"]),
+        "layer_n.bias": _t(params["layer_n"]["bias"]),
+    }
+
+    def dense(name, leaf):
+        sd[name + ".weight"] = _dense(leaf["kernel"])
+        sd[name + ".bias"] = _t(leaf["bias"])
+
+    for name in ("embed_return", "embed_action", "predict_action",
+                 "predict_rtg"):
+        dense(name, params[name])
+    enc = params["state_encoder"]
+    for i in range(3):
+        sd[f"state_encoder.conv{i}.weight"] = _conv(enc[f"conv{i}"]["kernel"])
+        sd[f"state_encoder.conv{i}.bias"] = _t(enc[f"conv{i}"]["bias"])
+    # JAX flattens the (H, W, C) activation, the port the (C, H, W) one.
+    hw, ch = state_conv_hw(cfg.image_size), 16
+    k = np.asarray(enc["dense"]["kernel"])
+    k = k.reshape(hw, hw, ch, -1).transpose(2, 0, 1, 3).reshape(
+        ch * hw * hw, -1)
+    sd["state_encoder.dense.weight"] = _dense(k)
+    sd["state_encoder.dense.bias"] = _t(enc["dense"]["bias"])
+    for i in range(cfg.n_blocks):
+        blk, p = params[f"block{i}"], f"blocks.{i}."
+        for ln in ("ln1", "ln2"):
+            sd[p + ln + ".weight"] = _t(blk[ln]["scale"])
+            sd[p + ln + ".bias"] = _t(blk[ln]["bias"])
+        dense(p + "attn.qkv_proj", blk["attn"]["qkv_proj"])
+        dense(p + "attn.o_proj", blk["attn"]["o_proj"])
+        dense(p + "fc", blk["fc"])
+        dense(p + "fc_proj", blk["fc_proj"])
+    return sd
+
+
+_DT_REF = [
+    (r"embed_(action|return)\.0\.(.*)", r"embed_\1.\2"),
+    (r"state_encoder\.0\.(.*)", r"state_encoder.conv0.\1"),
+    (r"state_encoder\.2\.(.*)", r"state_encoder.conv1.\1"),
+    (r"state_encoder\.4\.(.*)", r"state_encoder.conv2.\1"),
+    (r"state_encoder\.7\.(.*)", r"state_encoder.dense.\1"),
+    (r"transformer\.(\d+)\.(ln1|ln2)\.(.*)", r"blocks.\1.\2.\3"),
+    (r"transformer\.(\d+)\.c_att\.(qkv_proj|o_proj)\.(.*)",
+     r"blocks.\1.attn.\2.\3"),
+    (r"transformer\.(\d+)\.mlp\.(fc|fc_proj)\.(.*)", r"blocks.\1.\2.\3"),
+    (r"predict_action\.0\.(.*)", r"predict_action.\1"),
+    (r"(time_embed|task_embed|layer_n|predict_rtg)\.(.*)", r"\1.\2"),
+]
+
+
+def dt_from_reference(state_dict: Mapping[str, Any]
+                      ) -> Dict[str, torch.Tensor]:
+    """Reference DT ``state_dict`` (``model_experiment_{1,2}.pt`` layout) ->
+    port state dict. The causal-mask ``masking`` buffers are dropped."""
+    sd = {}
+    for key, v in _strip(state_dict).items():
+        if re.fullmatch(r"transformer\.\d+\.c_att\.masking", key):
+            continue
+        for pat, repl in _DT_REF:
+            if re.fullmatch(pat, key):
+                sd[re.sub(pat, repl, key)] = _t(v)
+                break
+        else:
+            raise ValueError(f"unrecognized DT checkpoint key: {key}")
+    return sd
+
+
+def load_strict(model: torch.nn.Module, sd: Mapping[str, torch.Tensor],
+                what: str) -> torch.nn.Module:
+    """``model.load_state_dict(sd)`` with the converters' error message."""
+    _check_keys(sd, model.state_dict(), what)
+    model.load_state_dict(sd)
+    return model
