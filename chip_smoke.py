@@ -5,20 +5,33 @@
 
 Run from the root of a checkout. It builds the port's CUDA kernels from the
 sources in the checkout, holds each kernel against its plain PyTorch
-version at the shapes of the evaluation path, drives that path once through
-the user entry points at the published model widths (30-iteration
-fixed-parameter PnP-ADMM on one 128x128 slice; greedy Decision Transformer
-evaluation of 63 slices, 7 from each of 9 synthetic eval directories) with
-random weights from fixed seeds, checks the results against CPU runs of the
-same code, and prints one JSON line per phase. The line before the last is
-the kernel summary; the last line is the device summary. Any failure ends
-the run with a traceback and a non-zero exit code.
+version at the shapes of the paths below, drives each path once through the
+user entry points at the published model widths with random weights from
+fixed seeds, checks the results against CPU runs of the same code, and
+prints one JSON line per phase. The paths:
+
+  * rollout: 30-iteration fixed-parameter PnP-ADMM on one 128x128 slice
+    (kernels K1, K2);
+  * eval: greedy Decision Transformer evaluation of 63 slices, 7 from each
+    of 9 synthetic eval directories, with the fused policy forward (K1, K2,
+    K3);
+  * mcts: the PUCB tree search of 16 of those slices, 30 rounds each, with
+    the per-op policy forward (K1, K2, K4, K5) and the proxy scorer; then
+    ARNIQA scores of 16 slices on the card and on the CPU.
+
+Launches are counted per path, from zero just before it to just after it.
+The line before the last is the kernel summary; the last line is the device
+summary. Any failure ends the run with a traceback and a non-zero exit
+code.
 
 It imports nothing of JAX or of the JAX package, and exits non-zero
 without a result when CUDA is unavailable or the port is not beside it.
 """
 from __future__ import annotations
 
+import contextlib
+import io
+import itertools
 import json
 import math
 import os
@@ -29,14 +42,28 @@ import time
 
 MU, SIGMA_D = 0.5, 15.0 / 255.0       # the fixed-parameter rollout's action
 EVAL_BATCH = 63                        # 9 directories x 7 images
+SEARCH_BATCH = 16                      # trees per search chunk (CLI default)
+SEARCH_RTG = 5.0
 H100_F32_FLOPS = 67e12                 # float32 outside the tensor cores
 H100_BYTES_PER_S = 3.35e12             # HBM3
 REPLACES = {
     "conv_block": "dt4image_restoration_tpu/ops/pallas/conv_block.py:134",
     "kspace": "dt4image_restoration_tpu/ops/pallas/kspace.py:37",
     "dt_decode": "dt4image_restoration_tpu/ops/pallas/transformer.py:122",
+    "attention": "dt4image_restoration_tpu/ops/pallas/attention.py:39",
+    "layernorm": "dt4image_restoration_tpu/ops/pallas/layernorm.py:29",
 }
-TOLERANCE = {"conv_block": 1e-4, "kspace": 1e-6, "dt_decode": 1e-4}
+TOLERANCE = {"conv_block": 1e-4, "kspace": 1e-6, "dt_decode": 1e-4,
+             "attention": 1e-5, "layernorm": 1e-5}
+# The shape of each kernel's summary row: the main path's (the evaluation
+# batch for K1-K3, the search batch for K4 and K5).
+SUMMARY_SHAPES = {
+    "conv_block": (f"inc B={EVAL_BATCH}", f"up4 B={EVAL_BATCH}"),
+    "kspace": (f"B={EVAL_BATCH}",),
+    "dt_decode": (f"B={EVAL_BATCH} T=12", f"B={EVAL_BATCH} T=18"),
+    "attention": (f"B={SEARCH_BATCH} H=4 T=18 D=32",),
+    "layernorm": (f"rows={SEARCH_BATCH * 18} E=128",),
+}
 
 
 def emit(obj) -> None:
@@ -63,6 +90,34 @@ def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_graph_ms(torch, fn, launches: int = 100, replays: int = 10
+                  ) -> float:
+    """Device time of one ``fn`` call: ``launches`` calls captured in one
+    CUDA graph, replayed ``replays`` times between CUDA events. A graph
+    replay launches the kernels without the host's per-call cost, so this
+    times what the card does, not the wrapper."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * launches)
 
 
 def max_errors(got, ref):
@@ -97,9 +152,13 @@ def phase_kernels(torch, dev):
     from dt4image_restoration_tpu_torch.models import (
         DecisionTransformer, UNetDenoiser, init_dt_params,
         random_unet_state_dict)
+    from dt4image_restoration_tpu_torch.models.decision_transformer import (
+        LN_EPS as ln_eps)
     from dt4image_restoration_tpu_torch.ops.csmri import kspace_consistency
+    from dt4image_restoration_tpu_torch.ops.kernels import attention as k4
     from dt4image_restoration_tpu_torch.ops.kernels import conv_block as k1
     from dt4image_restoration_tpu_torch.ops.kernels import kspace as k2
+    from dt4image_restoration_tpu_torch.ops.kernels import layernorm as k5
     from dt4image_restoration_tpu_torch.ops.kernels import transformer as k3
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -113,15 +172,15 @@ def phase_kernels(torch, dev):
     rows = []
 
     def record(kernel, shape, got, ref, ms, plain_ms, library_ms, flops,
-               nbytes):
+               nbytes, call_ms=None):
         abs_err, rel_err = max_errors(got, ref)
         bound_ms, bound_by = bound(flops, nbytes)
         row = {"phase": "kernel", "kernel": kernel, "shape": shape,
                "max_abs_err": abs_err, "max_rel_err": rel_err,
                "tolerance": TOLERANCE[kernel], "kernel_ms": ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "flops": flops, "bytes": nbytes}
+               "call_ms": call_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "flops": flops, "bytes": nbytes}
         emit(row)
         if not abs_err <= TOLERANCE[kernel]:
             raise AssertionError(f"{kernel} {shape}: max abs error {abs_err} "
@@ -155,7 +214,10 @@ def phase_kernels(torch, dev):
                            iters),
                    time_ms(torch, library, iters), flops, nbytes)
 
-    # K2 on the k-space of 128x128 slices.
+    # K2 on the k-space of 128x128 slices. K2, K4 and K5 take microseconds,
+    # less than the wrapper's host cost per call: their kernel_ms, plain_ms
+    # and library_ms are device times from CUDA graphs, and call_ms is the
+    # eager time per wrapper call.
     for b in (1, EVAL_BATCH):
         shape = (b, 1, 128, 128)
         z = torch.complex(torch.randn(shape, generator=gen, device=dev),
@@ -164,18 +226,28 @@ def phase_kernels(torch, dev):
                            torch.randn(shape, generator=gen, device=dev)) * 30
         mask = torch.rand(shape, generator=gen, device=dev) < 0.3
         mu = torch.rand((b,), generator=gen, device=dev) + 0.1
-        mu4 = mu.view(b, 1, 1, 1)
         args = (z, y0, mask, mu)
+
+        def library(z, y0, mask, mu):
+            mu4 = mu.view(-1, 1, 1, 1)
+            return torch.where(mask, (mu4 * z + y0) / (1 + mu4), z)
+
         got = torch.view_as_real(k2.kspace_consistency_kernel(*args))
         ref = torch.view_as_real(kspace_consistency(*args))
+        # Three copies of the inputs, taken in turn: 77 MB at B=63, more
+        # than the 50 MB L2, so the graph's launches read device memory as
+        # the bound assumes, not the L2 a repeated launch would hit.
+        copies = [args] + [tuple(a.clone() for a in args) for _ in range(2)]
+        turn = itertools.cycle(copies)
         n = b * 128 * 128
         record("kspace", f"B={b}", got, ref,
-               time_ms(torch, lambda: k2.kspace_consistency_kernel(*args),
-                       200),
-               time_ms(torch, lambda: kspace_consistency(*args), 200),
-               time_ms(torch, lambda: torch.where(
-                   mask, (mu4 * z + y0) / (1 + mu4), z), 200),
-               6.0 * int(mask.sum()), 25.0 * n + 4 * b)
+               time_graph_ms(torch, lambda: k2.kspace_consistency_kernel(
+                   *next(turn))),
+               time_graph_ms(torch, lambda: kspace_consistency(*next(turn))),
+               time_graph_ms(torch, lambda: library(*next(turn))),
+               6.0 * int(mask.sum()), 25.0 * n + 4 * b,
+               call_ms=time_ms(
+                   torch, lambda: k2.kspace_consistency_kernel(*args), 200))
 
     # K3 on the policy's token batches: two-token (T=12) and three-token
     # (T=18) forwards of 63 sequences.
@@ -195,6 +267,45 @@ def phase_kernels(torch, dev):
                time_ms(torch, lambda: k3.fused_dt_decode_plain(
                    tokens, packed, nb, cfg.n_heads), 100),
                None, flops, 8.0 * tokens.numel() + w_bytes)
+
+    # K4 on the per-op policy forward's heads: 16 trees (the search batch)
+    # and 63 sequences, 18 tokens, 4 heads of 32.
+    for b in (SEARCH_BATCH, EVAL_BATCH):
+        shape = (b, cfg.n_heads, 18, e // cfg.n_heads)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                   for _ in range(3))
+        got = k4.fused_causal_attention(q, k, v)
+        ref = k4.fused_causal_attention_plain(q, k, v)
+        t, d = shape[2], shape[3]
+        # QK^T and PV over the causal half: 2 D T (T+1) per (b, h) pair.
+        record("attention", f"B={b} H={shape[1]} T={t} D={d}", got, ref,
+               time_graph_ms(torch, lambda: k4.fused_causal_attention(
+                   q, k, v)),
+               time_graph_ms(torch, lambda: k4.fused_causal_attention_plain(
+                   q, k, v)),
+               time_graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True)),
+               2.0 * b * shape[1] * d * t * (t + 1), 16.0 * q.numel(),
+               call_ms=time_ms(torch, lambda: k4.fused_causal_attention(
+                   q, k, v), 200))
+
+    # K5 on the per-op forward's LayerNorms: B x 18 rows of 128; about 8
+    # flops per value (sum, centre, square, sum, scale, shift).
+    for b in (SEARCH_BATCH, EVAL_BATCH):
+        x = torch.randn((b * 18, e), generator=gen, device=dev) + 1.0
+        scale = 1 + 0.1 * torch.randn(e, generator=gen, device=dev)
+        bias = 0.1 * torch.randn(e, generator=gen, device=dev)
+        got = k5.layernorm(x, scale, bias)
+        ref = k5.layernorm_plain(x, scale, bias)
+        record("layernorm", f"rows={b * 18} E={e}", got, ref,
+               time_graph_ms(torch, lambda: k5.layernorm(x, scale, bias)),
+               time_graph_ms(torch, lambda: k5.layernorm_plain(
+                   x, scale, bias)),
+               time_graph_ms(torch, lambda: F.layer_norm(
+                   x, (e,), scale, bias, ln_eps)),
+               8.0 * x.numel(), 8.0 * x.numel() + 8.0 * e,
+               call_ms=time_ms(torch, lambda: k5.layernorm(x, scale, bias),
+                               200))
     return rows
 
 
@@ -262,19 +373,23 @@ def _load_policy(cfg, ckpt_dir, device):
     return dt
 
 
-def phase_eval(torch, dev, ckpt_dir, data_root):
+def eval_dirs(data_root):
+    """9 synthetic eval directories of 7 slices, as the CLI's default list."""
+    from dt4image_restoration_tpu_torch.config import EVAL_DIR_TOKENS
+    from dt4image_restoration_tpu_torch.data import write_eval_dir
+    return [write_eval_dir(os.path.join(data_root, tok), tok, n=7,
+                           seed=1000 * i)
+            for i, tok in enumerate(EVAL_DIR_TOKENS)]
+
+
+def phase_eval(torch, dev, ckpt_dir, dirs):
     """Greedy evaluation of 9 directories x 7 slices at the published
     widths, and a CPU cross-check of two of the slices."""
-    from dt4image_restoration_tpu_torch.config import (EVAL_DIR_TOKENS,
-                                                       ModelConfig)
-    from dt4image_restoration_tpu_torch.data import (EvaluationDataset,
-                                                     write_eval_dir)
+    from dt4image_restoration_tpu_torch.config import ModelConfig
+    from dt4image_restoration_tpu_torch.data import EvaluationDataset
     from dt4image_restoration_tpu_torch.inference import Evaluator
     from dt4image_restoration_tpu_torch.utils.loaders import load_denoiser
 
-    dirs = [write_eval_dir(os.path.join(data_root, tok), tok, n=7,
-                           seed=1000 * i)
-            for i, tok in enumerate(EVAL_DIR_TOKENS)]
     cfg = ModelConfig(block_size=18, n_embeds=9, mode="norm")
     unet_path = os.path.join(ckpt_dir, "unet-nm.pt")
 
@@ -314,6 +429,127 @@ def phase_eval(torch, dev, ckpt_dir, data_root):
     return out
 
 
+def search_records(dirs):
+    """The first SEARCH_BATCH slices in directory order, with the CLI's
+    per-directory seeds."""
+    from dt4image_restoration_tpu_torch.data import EvaluationDataset
+    records, seeds = [], []
+    for d in dirs:
+        ds = EvaluationDataset(d, rtg_target=SEARCH_RTG, kind="optimal")
+        for i in range(len(ds)):
+            records.append(ds[i])
+            seeds.append(i)
+    return records[:SEARCH_BATCH], seeds[:SEARCH_BATCH]
+
+
+def _search(torch, device, ckpt_dir, mcts_cfg, record_trace=False):
+    """The CLI's search (``mcts`` verb) on random weights: the per-op
+    policy with K4 and K5, the proxy scorer."""
+    from dt4image_restoration_tpu_torch.config import ModelConfig
+    from dt4image_restoration_tpu_torch.inference import BatchedMCTS
+    from dt4image_restoration_tpu_torch.models import proxy_value_fn
+    from dt4image_restoration_tpu_torch.utils.loaders import load_denoiser
+    cfg = ModelConfig(block_size=18, n_embeds=9, mode="norm",
+                      use_pallas=True)
+    return BatchedMCTS(
+        dt=_load_policy(cfg, ckpt_dir, device),
+        denoise=load_denoiser(os.path.join(ckpt_dir, "unet-nm.pt"),
+                              device=device),
+        model_cfg=cfg, cfg=mcts_cfg, value_fn=proxy_value_fn,
+        record_trace=record_trace, device=device)
+
+
+def phase_mcts(torch, dev, ckpt_dir, dirs, kernels):
+    """The tree search of 16 slices (one --search_batch chunk) with the
+    default MCTSConfig (30 rounds, 5 children, 30 timesteps), launches
+    counted over it alone; then one tree for 3 rounds on the card and on
+    the CPU."""
+    from dt4image_restoration_tpu_torch.config import MCTSConfig
+    records, seeds = search_records(dirs)
+    mcts_cfg = MCTSConfig()
+    mcts = _search(torch, dev, ckpt_dir, mcts_cfg)
+    printed = io.StringIO()   # the search's "MCTS Reward:" lines
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rewards = mcts.run_batch(records, seeds=seeds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+
+    check_cfg = MCTSConfig(iterations=3)
+    runs = []
+    for device in (dev, "cpu"):
+        m = _search(torch, device, ckpt_dir, check_cfg, record_trace=True)
+        with contextlib.redirect_stdout(printed):
+            runs.append((m.run(records[0], seed=seeds[0]), m.traces[0]))
+    (r_gpu, t_gpu), (r_cpu, t_cpu) = runs
+    key = ("iter", "time", "edge", "index")
+    same_trace = [[e[k] for k in key] for e in t_gpu] \
+        == [[e[k] for k in key] for e in t_cpu]
+    prior_rel = max(abs(a - b) / abs(b) for x, y in zip(t_gpu, t_cpu)
+                    for a, b in zip(x["probs"], y["probs"]))
+    out = {"phase": "mcts", "trees": len(records),
+           "iterations": mcts_cfg.iterations,
+           "n_children": mcts_cfg.n_children,
+           "max_timesteps": mcts_cfg.max_timesteps, "wall_s": wall,
+           "tree_iterations_per_s": len(records) * mcts_cfg.iterations
+           / wall,
+           "mean_best_psnr_db": sum(rewards) / len(rewards),
+           "launches": counts,
+           "check_iterations": check_cfg.iterations,
+           "check_trace": [[e[k] for k in key] for e in t_gpu],
+           "check_same_trace": same_trace,
+           "check_prior_max_rel_diff": prior_rel,
+           "check_reward_gpu_db": r_gpu, "check_reward_cpu_db": r_cpu,
+           "check_reward_diff_db": abs(r_gpu - r_cpu)}
+    emit(out)
+    if len(rewards) != SEARCH_BATCH \
+            or not all(map(math.isfinite, rewards)):
+        raise AssertionError(f"search returned {rewards}")
+    if not same_trace or prior_rel > 1e-4 \
+            or out["check_reward_diff_db"] > 0.05:
+        raise AssertionError("the search on the card disagrees with the CPU")
+    return counts
+
+
+def phase_arniqa(torch, dev, dirs):
+    """ARNIQA (random hub-layout weights, seed 0) scores of 16 slices on
+    the card and on the CPU."""
+    import numpy as np
+
+    from dt4image_restoration_tpu_torch.models import (
+        ARNIQA, random_arniqa_state_dict, score_images)
+    records, _ = search_records(dirs)
+    x = torch.from_numpy(np.stack(
+        [np.asarray(mat["gt"], np.float32).reshape(128, 128)
+         for _, mat in records]))
+    scores = {}
+    for device in (dev, "cpu"):
+        model = ARNIQA().eval().requires_grad_(False)
+        model.load_state_dict(random_arniqa_state_dict(0))
+        model.to(device)
+        if device != "cpu":
+            score_images(model, x.to(device))
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores[str(device)] = score_images(model, x.to(device)).cpu()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        scores[f"{device}_s"] = time.perf_counter() - t0
+    diff = float((scores[str(dev)] - scores["cpu"]).abs().max())
+    out = {"phase": "arniqa", "images": len(records),
+           "score_mean": float(scores["cpu"].mean()),
+           "max_abs_diff": diff, "tolerance": 1e-4,
+           "wall_s_gpu": scores[f"{dev}_s"], "wall_s_cpu": scores["cpu_s"]}
+    emit(out)
+    if not diff <= 1e-4:
+        raise AssertionError(f"ARNIQA on the card differs from the CPU by "
+                             f"{diff}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -339,26 +575,41 @@ def main() -> int:
     phase_device(torch, _build)
     rows = phase_kernels(torch, dev)
 
+    paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         ckpt_dir = os.path.join(tmp, "checkpoints")   # empty: random weights
+        dirs = eval_dirs(os.path.join(tmp, "data"))
         kernels.reset_launch_counts()
         phase_rollout(torch, dev, ckpt_dir)
-        phase_eval(torch, dev, ckpt_dir, os.path.join(tmp, "data"))
-        counts = kernels.launch_counts()
+        paths["rollout"] = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        phase_eval(torch, dev, ckpt_dir, dirs)
+        paths["eval"] = kernels.launch_counts()
+        paths["mcts"] = phase_mcts(torch, dev, ckpt_dir, dirs, kernels)
+        phase_arniqa(torch, dev, dirs)
+    emit({"phase": "launches", "paths": paths})
+    for path, want in (("rollout", ("conv_block", "kspace")),
+                       ("eval", ("conv_block", "kspace", "dt_decode")),
+                       ("mcts", ("conv_block", "kspace", "attention",
+                                 "layernorm"))):
+        missing = [k for k in want if paths[path][k] <= 0]
+        if missing:
+            raise AssertionError(f"the {path} path launched no {missing}")
 
     summary = []
-    for name in ("conv_block", "kspace", "dt_decode"):
+    for name in kernels.KERNEL_MODULES:
         mine = [r for r in rows if r["kernel"] == name
-                and (name != "conv_block" or r["shape"].endswith(
-                    f"B={EVAL_BATCH}"))
-                and (name != "kspace" or r["shape"] == f"B={EVAL_BATCH}")]
+                and r["shape"] in SUMMARY_SHAPES[name]]
+        calls = [r["call_ms"] for r in mine if r["call_ms"] is not None]
         summary.append({
             "name": name, "route": "cuda",
             "source": f"dt4image_restoration_tpu_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": counts[name],
+            "replaces": REPLACES[name],
+            "launches": sum(p[name] for p in paths.values()),
             "max_abs_err": max(r["max_abs_err"] for r in rows
                                if r["kernel"] == name),
             "ms": sum(r["kernel_ms"] for r in mine),
+            "call_ms": sum(calls) if calls else None,
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": sum(r["bound_ms"] for r in mine),
             "bound_by": mine[0]["bound_by"],

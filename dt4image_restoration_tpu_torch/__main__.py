@@ -1,13 +1,19 @@
-"""Command line of the PyTorch/CUDA port: greedy evaluation.
+"""Command line of the PyTorch/CUDA port: greedy evaluation and tree
+search.
 
     python -m dt4image_restoration_tpu_torch --block_size 18 --n_embeds 9 \\
         eval --rtg 10 --max_timesteps 30
     python -m dt4image_restoration_tpu_torch --block_size 18 --n_embeds 6 \\
         flex --max_timesteps 30
+    python -m dt4image_restoration_tpu_torch --block_size 18 --n_embeds 9 \\
+        mcts --rtg 5 --max_timesteps 30
 
-Flags follow the JAX package's ``main.py`` for these two modes; ``--device``
+Flags follow the JAX package's ``main.py`` for these modes; ``--device``
 (default ``cuda``) picks the device, and ``cpu`` must be asked for. A missing
-checkpoint is replaced by random weights with a warning.
+checkpoint is replaced by random weights with a warning. ``eval`` and
+``flex`` run the fused policy forward (kernel K3); ``mcts`` runs the per-op
+forward with kernels K4 and K5 and scores leaves with ARNIQA when
+``--arniqa_ckpt`` names a hub checkpoint, else with the proxy scorer.
 """
 from __future__ import annotations
 
@@ -34,9 +40,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "PyTorch versions")
     sub = p.add_subparsers(dest="mode", required=True)
     for name, ckpt in (("eval", "checkpoints/model_experiment_2.pt"),
+                       ("mcts", "checkpoints/model_experiment_2.pt"),
                        ("flex", "checkpoints/model_experiment_1.pt")):
         s = sub.add_parser(name)
-        if name == "eval":
+        if name != "flex":
             s.add_argument("--rtg", required=True)
         s.add_argument("--max_timesteps", type=int, default=30)
         s.add_argument("--checkpoint", default=ckpt)
@@ -49,6 +56,20 @@ def build_parser() -> argparse.ArgumentParser:
                             "this path; ignored when --data_dirs is given")
         s.add_argument("--dtype", default="float32", choices=["float32"],
                        help="compute dtype (the port's kernels are float32)")
+        if name == "mcts":
+            s.add_argument("--seed", type=int, default=0)
+            s.add_argument("--arniqa_ckpt", default=None,
+                           help="ARNIQA hub checkpoint scoring the leaves; "
+                                "without it the proxy scorer does")
+            s.add_argument("--sequential", action="store_true",
+                           help="search one image at a time instead of "
+                                "batching the trees")
+            s.add_argument("--search_batch", type=int, default=16,
+                           help="trees searched in lockstep per chunk")
+            s.add_argument("--tree_backend", default="host",
+                           choices=["host"],
+                           help="'host': tree logic on the host, one fused "
+                                "device iteration per search round")
     return p
 
 
@@ -75,8 +96,7 @@ def _default_dirs(args, base_dirs):
     return [os.path.join(root, d) for d in base_dirs]
 
 
-def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+def _evaluate(args) -> None:
     from .config import ModelConfig
     from .inference import Evaluator
     from .utils.loaders import load_denoiser, load_dt
@@ -100,9 +120,52 @@ def main(argv=None) -> None:
             print(f"\nAverage increment: {total / len(dirs)}\n")
         else:
             evaluator.run(dirs)
-    if args.mode == "flex":
-        # The reference prints the last target's total under this label.
-        print("Total MCTS reward:", total)
+
+
+def _search(args) -> None:
+    from .config import MCTSConfig, ModelConfig
+    from .data import EvaluationDataset
+    from .inference import BatchedMCTS
+    from .models.arniqa import make_value_fn, proxy_value_fn
+    from .utils.loaders import load_arniqa, load_denoiser, load_dt
+
+    rtg_target = float(args.rtg)
+    # The per-op forward with kernels K4 (attention) and K5 (LayerNorm).
+    cfg = ModelConfig(block_size=args.block_size, n_embeds=args.n_embeds,
+                      mode="norm", use_pallas=True)
+    dt = load_dt(cfg, args.checkpoint, device=args.device)
+    denoiser = load_denoiser(args.denoiser_ckpt, device=args.device)
+    if args.arniqa_ckpt and os.path.exists(args.arniqa_ckpt):
+        value_fn = make_value_fn(load_arniqa(args.arniqa_ckpt, args.device),
+                                 cfg.image_size)
+    else:
+        print("WARNING: no ARNIQA checkpoint; using the documented no-ref "
+              "proxy scorer", file=sys.stderr)
+        value_fn = proxy_value_fn
+    search_cfg = MCTSConfig(max_timesteps=args.max_timesteps or 30,
+                            seed=args.seed)
+    mcts = BatchedMCTS(dt=dt, denoise=denoiser, model_cfg=cfg,
+                       cfg=search_cfg, value_fn=value_fn, device=args.device)
+    records = []
+    for path in _existing_dirs(_default_dirs(args, EVAL_DIRS_9)):
+        ds = EvaluationDataset(path, rtg_target=rtg_target, kind="optimal",
+                               image_size=cfg.image_size)
+        records += [(ds[i], args.seed + i) for i in range(len(ds))]
+    b = 1 if args.sequential else args.search_batch
+    total = 0.0
+    for off in range(0, len(records), b):
+        chunk = records[off:off + b]
+        total += sum(mcts.run_batch([r for r, _ in chunk],
+                                    seeds=[s for _, s in chunk]))
+    print("Total MCTS reward:", total)
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    if args.mode == "mcts":
+        _search(args)
+    else:
+        _evaluate(args)
 
 
 if __name__ == "__main__":

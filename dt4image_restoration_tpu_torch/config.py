@@ -1,7 +1,7 @@
 """Configuration for the PyTorch/CUDA port.
 
 The port's own copy of the JAX package's ``config.py`` tables and the
-dataclasses its evaluation slice needs (the port imports nothing of the JAX
+dataclasses its inference paths need (the port imports nothing of the JAX
 package). Values are identical to the JAX package's.
 """
 from __future__ import annotations
@@ -41,6 +41,9 @@ class ModelConfig:
     max_timestep: int = 30
     mode: str = "norm"           # 'norm' (optimal) or 'flex'
     image_size: int = IMAGE_SIZE
+    # The per-op forward's attention and LayerNorms run the hand-written
+    # kernels K4 and K5 (ops/kernels/attention.py, layernorm.py).
+    use_pallas: bool = False
 
     @property
     def context_length(self) -> int:
@@ -62,6 +65,18 @@ class EvalConfig:
     rtg_target: float = 10.0
     eval_type: str = "norm"       # 'norm' or 'flex'
     report_every: int = 7         # images evaluated per directory
+
+
+@dataclasses.dataclass(frozen=True)
+class MCTSConfig:
+    """PUCB tree search."""
+    iterations: int = 30
+    n_children: int = 5
+    sigma_d_std: float = 0.2
+    mu_std: float = 0.001
+    max_timesteps: int = 30
+    context_length: int = 6
+    seed: int = 0
 
 
 def tasks_for_experiment(training_type: str

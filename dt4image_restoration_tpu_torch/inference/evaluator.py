@@ -28,8 +28,8 @@ from ..data.datasets import EvaluationDataset
 from ..env.pnp import CSMRIState, admm_step, compute_reward, get_policy_ob, \
     reset_from_mat
 from ..models.decision_transformer import (DecisionTransformer,
-                                           make_dt_apply,
                                            make_dt_embed_apply,
+                                           make_fused_dt_apply,
                                            make_state_encode)
 from ..utils.device import resolve_device
 
@@ -54,10 +54,23 @@ class EvalBuffers:
 
 
 def _take(buf: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``buf[b, idx[b, k]]`` for (B, K) indices -> (B, K, ...)."""
-    gather_idx = idx.reshape(idx.shape + (1,) * (buf.ndim - 2)).expand(
-        idx.shape + buf.shape[2:])
-    return buf.gather(1, gather_idx)
+    """``buf[b, idx[b, k]]`` for (B, K) indices -> (B, K, ...); an index
+    past the end reads NaN, as the JAX package's gathers do."""
+    trail = (1,) * (buf.ndim - 2)
+    gather_idx = idx.clamp(max=buf.shape[1] - 1).reshape(
+        idx.shape + trail).expand(idx.shape + buf.shape[2:])
+    past = (idx >= buf.shape[1]).reshape(idx.shape + trail)
+    return buf.gather(1, gather_idx).masked_fill(past, float("nan"))
+
+
+def set_slot(buf: torch.Tensor, t: torch.Tensor, value: torch.Tensor
+             ) -> torch.Tensor:
+    """A copy of ``buf`` (B, maxT, ...) with ``value[b]`` at slot ``t[b]``;
+    a row whose ``t`` is past the end is left as it was, as the JAX
+    package's scatters drop such writes."""
+    hit = torch.arange(buf.shape[1], device=buf.device)[None] == t[:, None]
+    hit = hit.reshape(hit.shape + (1,) * (buf.ndim - 2))
+    return torch.where(hit, value[:, None], buf)
 
 
 def make_policy_step(dt_apply: Callable, cfg: ModelConfig,
@@ -95,9 +108,7 @@ def make_policy_step(dt_apply: Callable, cfg: ModelConfig,
         action_dict = {k: v[rows, read_idx, 0]
                        for k, v in out.action_dict.items()}
 
-        actions = bufs.actions.clone()
-        actions[rows, t] = action_vec
-        bufs = bufs.replace(actions=actions)
+        bufs = bufs.replace(actions=set_slot(bufs.actions, t, action_vec))
 
         out2 = forward(bufs.actions)
         rtg_idx = torch.where(t < ctx, torch.clamp(t, max=ctx - 1),
@@ -106,6 +117,30 @@ def make_policy_step(dt_apply: Callable, cfg: ModelConfig,
         return action_vec, action_dict, pred_rtg, bufs
 
     return policy_step
+
+
+@torch.no_grad()
+def seed_buffers(cfg: ModelConfig, policy_x0: torch.Tensor,
+                 rtg0: torch.Tensor, task: torch.Tensor, max_timesteps: int,
+                 encode: Optional[Callable] = None) -> EvalBuffers:
+    """Fresh buffers holding the first observation and RTG at slot 0; with
+    ``encode`` (``(B, S) -> (B, E)``) the state-embedding cache, whose
+    unfilled slots hold the zero image's encoding."""
+    b, s = policy_x0.shape
+    dev = policy_x0.device
+    state_embs = None
+    if encode is not None:
+        zero_emb = encode(torch.zeros((1, s), device=dev))[0]
+        state_embs = zero_emb.expand(b, max_timesteps, -1).clone()
+        state_embs[:, 0] = encode(policy_x0)
+    states = torch.zeros((b, max_timesteps, s), device=dev)
+    states[:, 0] = policy_x0
+    rtg = torch.zeros((b, max_timesteps, 1), device=dev)
+    rtg[:, 0] = rtg0.reshape(b, 1)
+    return EvalBuffers(
+        states=states,
+        actions=torch.zeros((b, max_timesteps, cfg.action_dim), device=dev),
+        rtg=rtg, task=task.reshape(b).long(), state_embs=state_embs)
 
 
 @torch.no_grad()
@@ -119,28 +154,14 @@ def initial_policy_setup(dt_apply: Callable, cfg: ModelConfig,
     and the first RTG prediction (a three-token forward whose RTG and
     action streams are all zeros). With ``encode`` (``(B, S) -> (B, E)``)
     the buffers carry the state-embedding cache."""
-    b, s = policy_x0.shape
-    dev = policy_x0.device
+    b, dev = policy_x0.shape[0], policy_x0.device
     ctx = cfg.context_length
     if max_timesteps < ctx:
         raise ValueError(
             f"max_timesteps ({max_timesteps}) must be >= the context "
             f"length ({ctx}); the policy windows are ctx-sized")
 
-    state_embs = None
-    if encode is not None:
-        zero_emb = encode(torch.zeros((1, s), device=dev))[0]
-        state_embs = zero_emb.expand(b, max_timesteps, -1).clone()
-        state_embs[:, 0] = encode(policy_x0)
-
-    states = torch.zeros((b, max_timesteps, s), device=dev)
-    states[:, 0] = policy_x0
-    rtg = torch.zeros((b, max_timesteps, 1), device=dev)
-    rtg[:, 0] = rtg0.reshape(b, 1)
-    bufs = EvalBuffers(
-        states=states,
-        actions=torch.zeros((b, max_timesteps, cfg.action_dim), device=dev),
-        rtg=rtg, task=task.reshape(b).long(), state_embs=state_embs)
+    bufs = seed_buffers(cfg, policy_x0, rtg0, task, max_timesteps, encode)
 
     timesteps = torch.arange(ctx, device=dev)[None].expand(b, ctx)
     task_w = bufs.task[:, None].expand(b, ctx)
@@ -179,10 +200,15 @@ def greedy_rollout(dt_apply: Callable, denoise: Callable, cfg: ModelConfig,
     action or ``max_timesteps``). Iterations before ``start_time`` (scalar
     or per-image) are no-ops for that image. The loop stops as soon as
     every image has finished; the iterations it skips would change
-    nothing.
+    nothing. The loop writes into copies of ``bufs``: the tree search hands
+    it buffer snapshots that sibling nodes share.
     """
     policy_step = make_policy_step(dt_apply, cfg, dt_embed_apply)
     cached = bufs.state_embs is not None and encode is not None
+    bufs = bufs.replace(
+        states=bufs.states.clone(), rtg=bufs.rtg.clone(),
+        state_embs=None if bufs.state_embs is None
+        else bufs.state_embs.clone())
     b, dev = env_state.batch, env_state.x.device
     start_time = torch.as_tensor(start_time, dtype=torch.long,
                                  device=dev).reshape(-1).expand(b)
@@ -234,7 +260,12 @@ def greedy_rollout(dt_apply: Callable, denoise: Callable, cfg: ModelConfig,
 class Evaluator:
     """Evaluation driver with the reference CLI's surface: a loop over
     dataset directories and metrics over the first ``report_every`` images
-    of each, with all images of all directories in one batched rollout."""
+    of each, with all images of all directories in one batched rollout.
+
+    ``dt_apply`` is the forward the policy runs, with the signature of
+    :func:`..models.decision_transformer.make_dt_apply`; by default the
+    fused forward of ``dt`` (kernel K3). ``dt`` itself supplies the state
+    encoder of the embedding cache."""
     dt: DecisionTransformer
     denoise: Callable
     cfg: ModelConfig
@@ -244,6 +275,7 @@ class Evaluator:
     report_every: int = 7
     cached_encoder: bool = True   # cache state-encoder outputs per slot
     device: Any = "cuda"
+    dt_apply: Optional[Callable] = None
     # Metrics of the last ``run``, as ``evaluate_records`` returns them.
     last_metrics: Optional[Dict[str, Any]] = dataclasses.field(
         default=None, init=False)
@@ -272,11 +304,11 @@ class Evaluator:
         env_state = reset_from_mat(mats, device=dev)
         old_reward = compute_reward(env_state)
 
-        dt_apply = make_dt_apply(self.dt)
+        dt_apply = self.dt_apply or make_fused_dt_apply(self.dt)
         encode = dt_embed_apply = None
         if self.cached_encoder:
             encode = make_state_encode(self.dt)
-            dt_embed_apply = make_dt_embed_apply(self.dt)
+            dt_embed_apply = make_dt_embed_apply(dt_apply)
 
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)

@@ -1,0 +1,353 @@
+"""PUCB tree search, the third inference mode.
+
+Counterpart of the JAX package's ``inference/mcts.py`` host-tree search,
+with the same semantics: the tree and its bookkeeping stay on the host,
+N images' trees advance in lockstep, and one fused device iteration per
+PUCB round runs, for every tree's selected leaf,
+
+  * the policy step (two DT forwards) at the leaf's depth;
+  * the |Normal| sampling of the children's sigma_d and mu around the
+    policy's action (standard normals drawn on the host, per tree, in the
+    order the JAX search draws them), sorted by descending mu density;
+  * one batched PnP-ADMM step over (children + 1) slots per tree: slot 0 is
+    the policy's own action, slots 1.. the sampled children; ``done`` is
+    cleared on the outputs (the stop flag is re-decided every step);
+  * the buffer snapshot every child of the leaf shares;
+  * the greedy rollout from the leaf's depth to the horizon.
+
+Leaves are scored by a no-reference value function (ARNIQA or the proxy,
+``models/arniqa.py``), memoised per node name; rewards back up by max. The
+result per tree is the PSNR of the best-scored rollout's final image.
+
+Nodes share tensors: a leaf's children hold views of one stepped batch and
+one buffer snapshot. Nothing here writes into a tensor in place, and the
+greedy rollout works on copies of the buffers it is given, so a rollout
+from one leaf leaves its siblings' state as it was.
+
+A leaf at or past ``max_timesteps`` is expanded as in the JAX package:
+buffer writes past the end are dropped and window reads past it are NaN.
+
+The device part draws its |Normal| densities in float64, as the JAX
+package's host ``fold_and_sort`` does: at the mu std of 0.001 the float32
+``(|loc + std z| - loc) / std`` loses up to 3e-5 of z to rounding, which
+is visible in the priors.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import MCTSConfig, ModelConfig
+from ..env.pnp import CSMRIState, admm_step, reset_from_mat
+from ..models.decision_transformer import (DecisionTransformer,
+                                           make_dt_apply,
+                                           make_dt_embed_apply,
+                                           make_state_encode)
+from ..ops.metrics import psnr
+from ..utils.device import resolve_device
+from .evaluator import (EvalBuffers, greedy_rollout, make_policy_step,
+                        seed_buffers, set_slot)
+
+
+class Node:
+    """Search-tree node holding references to device tensors."""
+
+    def __init__(self, time: int, prob: float, parent: Optional["Node"],
+                 edge: int, index: int, env_state: Optional[CSMRIState],
+                 policy_state: Optional[CSMRIState],
+                 policy_rtg: float) -> None:
+        self.time = time
+        self.prob = float(prob)
+        self.parent = parent
+        self.edge = edge
+        self.index = index
+        self.env_state = env_state
+        self.policy_state = policy_state
+        self.policy_rtg = float(policy_rtg)
+        self.children: List["Node"] = []
+        self.reward = 0.0
+        self.s_visits = 0
+        self.action: Optional[np.ndarray] = None  # set when expanded
+        self.bufs: Optional[EvalBuffers] = None   # policy buffer snapshot
+
+    def __repr__(self) -> str:
+        return f"Node(time = {self.time}, edge = {self.edge})_{self.index}"
+
+    def backprop(self, reward: float) -> None:
+        """Max-backprop to the root."""
+        if reward > self.reward:
+            self.reward = reward
+            if self.parent is not None:
+                self.parent.backprop(reward)
+
+
+def select_p_ucb(parent: Node) -> Node:
+    """PUCB child selection: score = (child.reward - parent.reward) +
+    prob * sqrt(log(parent visits)) / (1 + child visits). The first child
+    with the highest score wins; the parent is returned when no child
+    beats the floor score of -1000."""
+    max_p_ucb = -1000.0
+    s_visits = parent.s_visits
+    log_visits = math.log(s_visits) if s_visits > 0 else -math.inf
+    root_term = math.sqrt(log_visits) if log_visits >= 0 else math.nan
+    best = parent
+    for child in parent.children:
+        p_ucb = (child.reward - parent.reward) \
+            + child.prob * root_term / (1 + child.s_visits)
+        if not math.isnan(p_ucb) and p_ucb > max_p_ucb:
+            best, max_p_ucb = child, p_ucb
+    return best
+
+
+def fold_and_sort(raw: np.ndarray, loc: float, std: float
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """Fold raw normal draws to |draws| and sort them by descending
+    N(loc, std) density, evaluated at the folded samples."""
+    samples = np.abs(np.asarray(raw, np.float64))
+    probs = np.exp(-0.5 * ((samples - loc) / std) ** 2) \
+        / (std * np.sqrt(2 * np.pi))
+    order = np.argsort(-probs, kind="stable")
+    return (samples[order].astype(np.float32),
+            probs[order].astype(np.float32))
+
+
+def sample_actions(rng: np.random.Generator, loc: float, std: float, n: int
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """|N(loc, std)| samples sorted by descending density."""
+    raw = loc + std * rng.standard_normal(n)
+    return fold_and_sort(raw, loc, std)
+
+
+def fold_sort_batch(loc: torch.Tensor, z: torch.Tensor, std: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fold_and_sort` of ``loc + std * z`` over a (n_trees, k) batch
+    of standard normals with per-tree locs, on their device, in float64.
+    Returns float32 (samples, densities)."""
+    loc = loc.double()[:, None]
+    samples = (loc + std * z.double()).abs()
+    u = (samples - loc) / std
+    probs = torch.exp(-0.5 * u * u) / (std * math.sqrt(2 * math.pi))
+    order = torch.argsort(-probs, dim=-1, stable=True)
+    return (samples.gather(-1, order).float(),
+            probs.gather(-1, order).float())
+
+
+def _cat(items, cls):
+    """Concatenate dataclasses of tensors along the batch axis."""
+    return cls(**{f.name: None if getattr(items[0], f.name) is None
+                  else torch.cat([getattr(x, f.name) for x in items])
+                  for f in dataclasses.fields(cls)})
+
+
+def _rows(item, lo: int, hi: int):
+    """Rows ``lo:hi`` (views) of a dataclass of tensors."""
+    return dataclasses.replace(item, **{
+        f.name: getattr(item, f.name)[lo:hi]
+        for f in dataclasses.fields(item)
+        if getattr(item, f.name) is not None})
+
+
+@dataclasses.dataclass
+class MCTS:
+    """The lockstep tree search. ``value_fn`` maps a restored image (1, H, W)
+    numpy array to a scalar no-reference quality score.
+
+    The policy is ``dt``'s per-op forward, which runs kernels K4 and K5
+    when ``dt.cfg.use_pallas``; with ``cached_encoder`` the buffers cache
+    each observation's state embedding and the forward runs over them.
+    """
+    dt: DecisionTransformer
+    denoise: Callable
+    model_cfg: ModelConfig
+    cfg: MCTSConfig
+    value_fn: Callable[[np.ndarray], float]
+    cached_encoder: bool = True
+    record_trace: bool = False   # keep per-iteration traces in self.traces
+    device: Any = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self._dt_apply = make_dt_apply(self.dt)
+        self._encode = self._dt_embed_apply = None
+        if self.cached_encoder:
+            self._encode = make_state_encode(self.dt)
+            self._dt_embed_apply = make_dt_embed_apply(self._dt_apply)
+        self._policy_step = make_policy_step(self._dt_apply, self.model_cfg,
+                                             self._dt_embed_apply)
+        self.traces: Optional[List[List[Dict[str, Any]]]] = None
+
+    def _child_bufs(self, bufs: EvalBuffers, t: torch.Tensor,
+                    ob: torch.Tensor, pred_rtg: torch.Tensor
+                    ) -> EvalBuffers:
+        """The snapshot a leaf's children share: the leaf's buffers with
+        its policy action (already at slot t - 1), and its stepped
+        observation and predicted RTG at slot t."""
+        new = bufs.replace(states=set_slot(bufs.states, t, ob),
+                           rtg=set_slot(bufs.rtg, t, pred_rtg[:, None]))
+        if self._encode is not None:
+            new = new.replace(state_embs=set_slot(
+                bufs.state_embs, t, self._encode(ob)))
+        return new
+
+    def _search_iter(self, bufs: EvalBuffers, t_vec: torch.Tensor,
+                     env_state: CSMRIState, policy_rtg: torch.Tensor,
+                     z_sig: torch.Tensor, z_mu: torch.Tensor):
+        """One fused search iteration over every tree's leaf (see the
+        module docstring)."""
+        n, k = bufs.states.shape[0], self.cfg.n_children
+        action_vec, action_dict, pred_rtg, bufs_upd = self._policy_step(
+            bufs, t_vec)
+        loc_sig, loc_mu = action_dict["sigma_d"], action_dict["mu"]
+        sig_samples, _ = fold_sort_batch(loc_sig, z_sig,
+                                         self.cfg.sigma_d_std)
+        # The children's priors are the mu densities.
+        mu_samples, probs = fold_sort_batch(loc_mu, z_mu, self.cfg.mu_std)
+
+        tiled = CSMRIState(**{
+            f.name: getattr(env_state, f.name).repeat_interleave(k + 1, 0)
+            for f in dataclasses.fields(CSMRIState)})
+        exp_action = {
+            "T": action_dict["T"].repeat_interleave(k + 1),
+            "sigma_d": torch.cat([loc_sig[:, None], sig_samples],
+                                 1).reshape(-1),
+            "mu": torch.cat([loc_mu[:, None], mu_samples], 1).reshape(-1),
+        }
+        stepped = admm_step(self.denoise, tiled, exp_action)
+        stepped = stepped.replace(done=torch.zeros_like(stepped.done))
+        slot0_ob = stepped.x.reshape(n, k + 1, -1)[:, 0]
+        new_bufs = self._child_bufs(bufs_upd, t_vec + 1, slot0_ob, pred_rtg)
+
+        final, _, ep_len, _ = greedy_rollout(
+            self._dt_apply, self.denoise, self.model_cfg, env_state,
+            bufs_upd, action_dict, policy_rtg, self.cfg.max_timesteps,
+            t_vec, encode=self._encode, dt_embed_apply=self._dt_embed_apply)
+        return (action_vec, pred_rtg, probs, stepped, new_bufs, final.x,
+                ep_len)
+
+    def run(self, record, seed: Optional[int] = None) -> float:
+        """Search one image (a batch of one)."""
+        return self.run_batch(
+            [record], seeds=[self.cfg.seed if seed is None else seed])[0]
+
+    @torch.no_grad()
+    def run_batch(self, records: Sequence, seeds: Optional[Sequence[int]]
+                  = None) -> List[float]:
+        """Search ``((states, rtg, actions, task), mat)`` records, one tree
+        each, in lockstep; per-tree RNG streams are seeded from ``seeds``
+        (default ``cfg.seed + i``), so a tree's search does not depend on
+        the batch it runs in beyond float reordering. Prints and returns
+        each tree's final PSNR."""
+        if not records:
+            raise ValueError("run_batch needs at least one record "
+                             "(empty evaluation directory?)")
+        if seeds is None:
+            seeds = [self.cfg.seed + i for i in range(len(records))]
+        dev, k = self.device, self.cfg.n_children
+        rngs = [np.random.default_rng(s) for s in seeds]
+        self.traces = [[] for _ in records] if self.record_trace else None
+
+        roots: List[Node] = []
+        rewards_dicts: List[Dict[str, float]] = []
+        states_dicts: List[Dict[str, np.ndarray]] = []
+        for (_, rtg0, _, task0), mat in records:
+            env_state = reset_from_mat(mat, device=dev)
+            rtg0 = float(np.asarray(rtg0).reshape(-1)[0])
+            root = Node(time=0, prob=1.0, parent=None, edge=0, index=0,
+                        env_state=env_state, policy_state=env_state,
+                        policy_rtg=rtg0)
+            # The root observation is the reset state's x (the clipped
+            # record x0), not the dataset's policy state.
+            root.bufs = seed_buffers(
+                self.model_cfg, env_state.x_real.reshape(1, -1),
+                torch.tensor([rtg0], device=dev),
+                torch.as_tensor(np.asarray(task0).reshape(-1)[:1],
+                                device=dev),
+                self.cfg.max_timesteps, self._encode)
+            root.s_visits = 1
+            roots.append(root)
+            rewards_dicts.append({})
+            states_dicts.append({})
+
+        for i in range(self.cfg.iterations):
+            leaves = []
+            for root in roots:
+                root.s_visits += 1
+                node = root
+                while node.children:
+                    node = select_p_ucb(node)
+                    node.s_visits += 1
+                leaves.append(node)
+
+            # The loc-independent standard normals, in the order
+            # sample_actions consumes them: k sigma_d draws, then k mu
+            # draws, per tree.
+            z = torch.from_numpy(np.stack(
+                [r.standard_normal(2 * k) for r in rngs])).to(dev)
+            (action_vec, pred_rtg, probs, stepped, child_bufs, finals,
+             _) = self._search_iter(
+                _cat([n.bufs for n in leaves], EvalBuffers),
+                torch.tensor([n.time for n in leaves], device=dev),
+                _cat([n.env_state for n in leaves], CSMRIState),
+                torch.tensor([n.policy_rtg for n in leaves],
+                             dtype=torch.float32, device=dev),
+                z[:, :k], z[:, k:])
+            action_vec, pred_rtg, probs, finals = (
+                a.cpu().numpy() for a in (action_vec, pred_rtg, probs,
+                                          finals))
+
+            for j, node in enumerate(leaves):
+                node.action = action_vec[j]
+                node.policy_state = _rows(stepped, j * (k + 1),
+                                          j * (k + 1) + 1)
+                shared = _rows(child_bufs, j, j + 1)
+                for c in range(k):
+                    lo = j * (k + 1) + c + 1
+                    child = Node(time=node.time + 1, prob=float(probs[j, c]),
+                                 parent=node, edge=c, index=i,
+                                 env_state=_rows(stepped, lo, lo + 1),
+                                 policy_state=node.policy_state,
+                                 policy_rtg=float(pred_rtg[j]))
+                    child.bufs = shared
+                    node.children.append(child)
+
+            for j, node in enumerate(leaves):
+                rep = repr(node)
+                if rep in rewards_dicts[j]:
+                    reward = rewards_dicts[j][rep]
+                else:
+                    x = finals[j:j + 1].reshape(1, *finals.shape[-2:])
+                    reward = float(self.value_fn(x))
+                    rewards_dicts[j][rep] = reward
+                    states_dicts[j][rep] = x
+                node.backprop(reward)
+                if self.record_trace:
+                    self.traces[j].append({
+                        "iter": i, "time": node.time, "edge": node.edge,
+                        "index": node.index,
+                        "probs": [c.prob for c in node.children],
+                        "reward": reward})
+
+        out = []
+        for j, root in enumerate(roots):
+            best_key = max(rewards_dicts[j], key=rewards_dicts[j].get)
+            best_state = torch.from_numpy(states_dicts[j][best_key])
+            gt = root.env_state.gt.cpu().reshape(best_state.shape)
+            # PSNR(gt, best) in the JAX search's argument order.
+            reward = float(psnr(gt, best_state)[0, 0])
+            print("MCTS Reward: ", reward)
+            out.append(reward)
+        return out
+
+
+class BatchedMCTS(MCTS):
+    """The CLI's name for the lockstep search (:class:`MCTS` batches every
+    call; ``run`` is a batch of one)."""
+
+
+def run_mcts(mcts: MCTS, record, seed: Optional[int] = None) -> float:
+    """Functional entry point: search one record."""
+    return mcts.run(record, seed=seed)

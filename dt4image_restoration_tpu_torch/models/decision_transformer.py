@@ -13,20 +13,33 @@ the same semantics:
     positions; two-token (RTG, state) mode when ``actions`` is None;
   * per-key action rescale whose key order differs by mode.
 
-Inference only. The embeddings and heads are plain torch; the whole block
-stack and the final LayerNorm run as one launch of kernel K3
-(:mod:`..ops.kernels.transformer`, its plain version on the CPU), as the
-JAX package's ``make_fused_dt_apply`` does.
+Inference only (no dropout). Two forwards over the same weights, as in the
+JAX package:
+
+  * the per-op forward, :meth:`DecisionTransformer.forward`
+    (:func:`make_dt_apply`, :func:`make_dt_embed_apply`): module by module;
+    with ``cfg.use_pallas`` its LayerNorms run kernel K5
+    (:mod:`..ops.kernels.layernorm`) and its attention kernel K4
+    (:mod:`..ops.kernels.attention`);
+  * the fused forward, :func:`make_fused_dt_apply`: the whole block stack
+    and the final LayerNorm as one launch of kernel K3
+    (:mod:`..ops.kernels.transformer`).
+
+Every kernel runs its plain PyTorch version on the CPU.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..config import ModelConfig
+from ..ops.kernels.attention import fused_causal_attention
+from ..ops.kernels.layernorm import layernorm, layernorm_plain
 from ..ops.kernels.transformer import fused_dt_decode, pack_dt_weights
 
 SIGMA_D_SCALE = 70.0 / 255.0
@@ -81,26 +94,67 @@ class StateEncoder(nn.Module):
         return x.reshape(b, t, -1)
 
 
-class Attention(nn.Module):
-    """Fused-QKV causal attention weights of one block (run by K3)."""
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis with torch's parameter names; kernel K5
+    when ``use_pallas``, else the plain two-pass version."""
 
-    def __init__(self, embed_dim: int):
+    def __init__(self, embed_dim: int, use_pallas: bool = False):
         super().__init__()
-        self.qkv_proj = nn.Linear(embed_dim, 3 * embed_dim)
-        self.o_proj = nn.Linear(embed_dim, embed_dim)
+        self.weight = nn.Parameter(torch.ones(embed_dim))
+        self.bias = nn.Parameter(torch.zeros(embed_dim))
+        self.use_pallas = use_pallas
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        norm = layernorm if self.use_pallas else layernorm_plain
+        return norm(x, self.weight, self.bias, LN_EPS)
+
+
+class Attention(nn.Module):
+    """Causal multi-head attention with a fused QKV projection; kernel K4
+    when ``cfg.use_pallas`` and the module is not training."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        e = cfg.embed_dim
+        self.n_heads = cfg.n_heads
+        self.use_pallas = cfg.use_pallas
+        self.qkv_proj = nn.Linear(e, 3 * e)
+        self.o_proj = nn.Linear(e, e)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, e = x.shape
+        h = self.n_heads
+        q, k, v = (a.reshape(b, t, h, e // h).transpose(1, 2)
+                   for a in self.qkv_proj(x).split(e, dim=-1))
+        if self.use_pallas and not self.training:
+            y = fused_causal_attention(q.contiguous(), k.contiguous(),
+                                       v.contiguous())
+        else:
+            att = (q @ k.transpose(-1, -2)) / math.sqrt(e // h)
+            causal = torch.ones(t, t, dtype=torch.bool,
+                                device=x.device).tril()
+            att = torch.softmax(att.masked_fill(~causal, float("-inf")),
+                                dim=-1)
+            y = att @ v
+        return self.o_proj(y.transpose(1, 2).reshape(b, t, e))
 
 
 class Block(nn.Module):
-    """Weights of one pre-LN block (run by K3): ln1, attn, ln2, fc,
-    fc_proj."""
+    """Pre-LN block: attention with a residual; the MLP output replaces
+    the stream (no residual), as in the reference model."""
 
-    def __init__(self, embed_dim: int):
+    def __init__(self, cfg: ModelConfig):
         super().__init__()
-        self.ln1 = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.attn = Attention(embed_dim)
-        self.ln2 = nn.LayerNorm(embed_dim, eps=LN_EPS)
-        self.fc = nn.Linear(embed_dim, 4 * embed_dim)
-        self.fc_proj = nn.Linear(4 * embed_dim, embed_dim)
+        e = cfg.embed_dim
+        self.ln1 = LayerNorm(e, cfg.use_pallas)
+        self.attn = Attention(cfg)
+        self.ln2 = LayerNorm(e, cfg.use_pallas)
+        self.fc = nn.Linear(e, 4 * e)
+        self.fc_proj = nn.Linear(4 * e, e)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x))
+        return self.fc_proj(F.gelu(self.fc(self.ln2(x))))
 
 
 class DecisionTransformer(nn.Module):
@@ -115,8 +169,8 @@ class DecisionTransformer(nn.Module):
         self.state_encoder = StateEncoder(cfg)
         self.time_embed = nn.Embedding(cfg.max_timestep, e)
         self.task_embed = nn.Embedding(cfg.n_embeds, e)
-        self.blocks = nn.ModuleList(Block(e) for _ in range(cfg.n_blocks))
-        self.layer_n = nn.LayerNorm(e, eps=LN_EPS)
+        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.n_blocks))
+        self.layer_n = LayerNorm(e, cfg.use_pallas)
         self.predict_action = nn.Linear(e, cfg.action_dim)
         self.predict_rtg = nn.Linear(e, 1)
         self._packed = None
@@ -136,13 +190,9 @@ class DecisionTransformer(nn.Module):
             self._packed_key = key
         return self._packed
 
-    def forward(self, rtg, states, timesteps, task, actions=None,
-                state_embeddings=None) -> DTOutput:
-        """Args: rtg (B, T, 1); states (B, T, image_size**2), ignored when
-        ``state_embeddings`` (B, T, E) is given; timesteps (B, T) or
-        (B, T, 1); task (B, T); actions (B, T, action_dim) or None for the
-        two-token (RTG, state) mode."""
-        cfg = self.cfg
+    def embed(self, rtg, states, timesteps, task, actions=None,
+              state_embeddings=None) -> torch.Tensor:
+        """The interleaved input tokens (B, n_streams * T, E)."""
         b, t = rtg.shape[:2]
         rtg_emb = torch.tanh(self.embed_return(rtg))
         state_emb = self.state_encoder(states) if state_embeddings is None \
@@ -155,19 +205,33 @@ class DecisionTransformer(nn.Module):
         else:
             streams = (rtg_emb, state_emb)
         n = len(streams)
-        tokens = torch.stack(streams, dim=2).reshape(b, n * t, cfg.embed_dim)
-        tokens = tokens + time_emb.repeat_interleave(n, dim=1)
+        tokens = torch.stack(streams, dim=2).reshape(b, n * t,
+                                                     self.cfg.embed_dim)
+        return tokens + time_emb.repeat_interleave(n, dim=1)
 
-        x = fused_dt_decode(tokens.contiguous(), self.packed_weights(),
-                            cfg.n_blocks, cfg.n_heads)
-
-        x = x.reshape(b, t, n, cfg.embed_dim)
+    def heads(self, x: torch.Tensor, three_token: bool) -> DTOutput:
+        """Action and RTG heads on the final (B, n_streams * T, E) stream."""
+        n = 3 if three_token else 2
+        b = x.shape[0]
+        x = x.reshape(b, -1, n, self.cfg.embed_dim)
         raw_actions = torch.sigmoid(self.predict_action(x[:, :, 1]))
-        pred_rtg = self.predict_rtg(x[:, :, 2]) if actions is not None \
-            else None
-        pred_actions, action_dict = transform_actions(raw_actions, cfg.mode)
+        pred_rtg = self.predict_rtg(x[:, :, 2]) if three_token else None
+        pred_actions, action_dict = transform_actions(raw_actions,
+                                                      self.cfg.mode)
         return DTOutput(pred_actions=pred_actions, pred_rtg=pred_rtg,
                         action_dict=action_dict)
+
+    def forward(self, rtg, states, timesteps, task, actions=None,
+                state_embeddings=None) -> DTOutput:
+        """The per-op forward. Args: rtg (B, T, 1); states
+        (B, T, image_size**2), ignored when ``state_embeddings`` (B, T, E)
+        is given; timesteps (B, T) or (B, T, 1); task (B, T); actions
+        (B, T, action_dim) or None for the two-token (RTG, state) mode."""
+        x = self.embed(rtg, states, timesteps, task, actions,
+                       state_embeddings)
+        for block in self.blocks:
+            x = block(x)
+        return self.heads(self.layer_n(x), actions is not None)
 
 
 def transform_actions(raw: torch.Tensor, mode: str
@@ -184,19 +248,40 @@ def transform_actions(raw: torch.Tensor, mode: str
 
 
 def make_dt_apply(model: DecisionTransformer) -> Callable:
-    """``(rtg, states, timesteps, task, actions) -> DTOutput``."""
-    def apply(rtg, states, timesteps, task, actions=None):
-        return model(rtg, states, timesteps, task, actions)
+    """The per-op forward: ``(rtg, states, timesteps, task, actions=None,
+    state_embeddings=None) -> DTOutput``."""
+    def apply(rtg, states, timesteps, task, actions=None,
+              state_embeddings=None):
+        return model(rtg, states, timesteps, task, actions,
+                     state_embeddings=state_embeddings)
     return apply
 
 
-def make_dt_embed_apply(model: DecisionTransformer) -> Callable:
-    """Apply over precomputed state embeddings:
-    ``(rtg, state_embs (B, T, E), timesteps, task, actions)``."""
+def make_dt_embed_apply(dt_apply: Callable) -> Callable:
+    """``dt_apply`` (:func:`make_dt_apply` or :func:`make_fused_dt_apply`)
+    over precomputed state embeddings: ``(rtg, state_embs (B, T, E),
+    timesteps, task, actions)``."""
     def apply_embed(rtg, state_embs, timesteps, task, actions=None):
-        return model(rtg, None, timesteps, task, actions,
-                     state_embeddings=state_embs)
+        return dt_apply(rtg, None, timesteps, task, actions,
+                        state_embeddings=state_embs)
     return apply_embed
+
+
+def make_fused_dt_apply(model: DecisionTransformer) -> Callable:
+    """The fused forward, with the signature of :func:`make_dt_apply`:
+    embeddings and heads as in the per-op forward, the whole block stack
+    and the final LayerNorm as one launch of kernel K3 on the weights
+    :meth:`DecisionTransformer.packed_weights` keeps."""
+    cfg = model.cfg
+
+    def apply_fn(rtg, states, timesteps, task, actions=None,
+                 state_embeddings=None):
+        tokens = model.embed(rtg, states, timesteps, task, actions,
+                             state_embeddings)
+        x = fused_dt_decode(tokens.contiguous(), model.packed_weights(),
+                            cfg.n_blocks, cfg.n_heads)
+        return model.heads(x, actions is not None)
+    return apply_fn
 
 
 def make_state_encode(model: DecisionTransformer) -> Callable:

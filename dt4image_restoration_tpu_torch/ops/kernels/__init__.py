@@ -5,15 +5,18 @@ compiled on its first CUDA call (see :mod:`._build`).
     K1 conv_block  <- ops/pallas/conv_block.py:fused_conv_block
     K2 kspace      <- ops/pallas/kspace.py:kspace_consistency_pallas
     K3 transformer <- ops/pallas/transformer.py:fused_dt_decode
+    K4 attention   <- ops/pallas/attention.py:fused_causal_attention
+    K5 layernorm   <- ops/pallas/layernorm.py:layernorm_pallas
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from . import conv_block, kspace, transformer
+from . import attention, conv_block, kspace, layernorm, transformer
 
 KERNEL_MODULES = {"conv_block": conv_block, "kspace": kspace,
-                  "dt_decode": transformer}
+                  "dt_decode": transformer, "attention": attention,
+                  "layernorm": layernorm}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -24,13 +24,13 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .layernorm import layernorm_plain
 
 __all__ = ["PACK_KEYS", "fused_dt_decode", "fused_dt_decode_plain",
            "pack_dt_weights"]
 
 launches = 0  # kernel launches since the last reset
 
-LN_EPS = 1e-5
 MAX_TOKENS = 32
 PACK_KEYS = ("ln1_s", "ln1_b", "qkv_w", "qkv_b", "o_w", "o_b", "ln2_s",
              "ln2_b", "fc_w", "fc_b", "proj_w", "proj_b", "lnf_s", "lnf_b")
@@ -65,13 +65,6 @@ def pack_dt_weights(state: Mapping[str, torch.Tensor], n_blocks: int
     }
 
 
-def _layernorm(x, scale, bias):
-    mean = x.mean(dim=-1, keepdim=True)
-    centered = x - mean
-    var = (centered * centered).mean(dim=-1, keepdim=True)
-    return centered * torch.rsqrt(var + LN_EPS) * scale + bias
-
-
 def fused_dt_decode_plain(tokens: torch.Tensor,
                           packed: Mapping[str, torch.Tensor],
                           n_blocks: int = 5, n_heads: int = 4
@@ -82,7 +75,7 @@ def fused_dt_decode_plain(tokens: torch.Tensor,
     d = e // n_heads
     causal = torch.ones(t, t, dtype=torch.bool, device=x.device).tril()
     for i in range(n_blocks):
-        h = _layernorm(x, packed["ln1_s"][i], packed["ln1_b"][i])
+        h = layernorm_plain(x, packed["ln1_s"][i], packed["ln1_b"][i])
         qkv = h @ packed["qkv_w"][i] + packed["qkv_b"][i]
         q, k, v = (a.reshape(b, t, n_heads, d).transpose(1, 2)
                    for a in qkv.split(e, dim=-1))
@@ -92,10 +85,10 @@ def fused_dt_decode_plain(tokens: torch.Tensor,
         x = x + att @ packed["o_w"][i] + packed["o_b"][i]
         # The MLP output replaces the stream (no residual), as in the
         # reference model.
-        h = _layernorm(x, packed["ln2_s"][i], packed["ln2_b"][i])
+        h = layernorm_plain(x, packed["ln2_s"][i], packed["ln2_b"][i])
         h = F.gelu(h @ packed["fc_w"][i] + packed["fc_b"][i])
         x = h @ packed["proj_w"][i] + packed["proj_b"][i]
-    return _layernorm(x, packed["lnf_s"], packed["lnf_b"])
+    return layernorm_plain(x, packed["lnf_s"], packed["lnf_b"])
 
 
 @functools.lru_cache(maxsize=None)

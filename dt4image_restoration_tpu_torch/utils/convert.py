@@ -2,14 +2,15 @@
 
 Two sources, each turned into a port ``state_dict``:
 
-  * the JAX package's Flax parameter trees (numpy leaves):
-    :func:`unet_from_jax`, :func:`dt_from_jax`. Conv kernels go HWIO -> OIHW,
-    Dense kernels are transposed, and the state encoder's dense kernel is
-    permuted from the NHWC flatten of the JAX model to the NCHW flatten of
-    the port.
+  * the JAX package's Flax variable trees (numpy leaves):
+    :func:`unet_from_jax`, :func:`dt_from_jax`, :func:`arniqa_from_jax`.
+    Conv kernels go HWIO -> OIHW, Dense kernels are transposed, and the
+    state encoder's dense kernel is permuted from the NHWC flatten of the
+    JAX model to the NCHW flatten of the port.
   * the reference's published PyTorch checkpoints (``unet-nm.pt``,
-    ``model_experiment_{1,2}.pt``): :func:`unet_from_reference`,
-    :func:`dt_from_reference`. Only key names change.
+    ``model_experiment_{1,2}.pt``) and the ARNIQA hub checkpoint:
+    :func:`unet_from_reference`, :func:`dt_from_reference`,
+    :func:`arniqa_from_hub`. Only key names change.
 
 Every converter is strict: a missing or unconsumed key raises.
 """
@@ -167,6 +168,61 @@ def dt_from_reference(state_dict: Mapping[str, Any]
                 break
         else:
             raise ValueError(f"unrecognized DT checkpoint key: {key}")
+    return sd
+
+
+# --- ARNIQA ----------------------------------------------------------------
+
+def arniqa_from_jax(variables: Mapping[str, Any]
+                    ) -> Dict[str, torch.Tensor]:
+    """JAX ``ARNIQA`` variables ``{'params', 'batch_stats'}`` -> port
+    ``ARNIQA`` state dict (torchvision names under ``encoder.model.``)."""
+    params, stats = variables["params"], variables["batch_stats"]
+    enc_p, enc_s = params["encoder"], stats["encoder"]
+    pre = "encoder.model."
+    sd = {}
+
+    def conv(dst, leaf):
+        sd[pre + dst + ".weight"] = _conv(leaf["kernel"])
+
+    def bn(dst, p, s):
+        sd[pre + dst + ".weight"] = _t(p["scale"])
+        sd[pre + dst + ".bias"] = _t(p["bias"])
+        sd[pre + dst + ".running_mean"] = _t(s["mean"])
+        sd[pre + dst + ".running_var"] = _t(s["var"])
+        sd[pre + dst + ".num_batches_tracked"] = torch.zeros(
+            (), dtype=torch.long)
+
+    conv("conv1", enc_p["conv1"])
+    bn("bn1", enc_p["bn1"], enc_s["bn1"])
+    for name, bp in enc_p.items():
+        m = re.fullmatch(r"layer(\d)_(\d+)", name)
+        if m is None:
+            continue
+        dst, bs = f"layer{m.group(1)}.{m.group(2)}.", enc_s[name]
+        for i in (1, 2, 3):
+            conv(dst + f"conv{i}", bp[f"conv{i}"])
+            bn(dst + f"bn{i}", bp[f"bn{i}"], bs[f"bn{i}"])
+        if "ds_conv" in bp:
+            conv(dst + "downsample.0", bp["ds_conv"])
+            bn(dst + "downsample.1", bp["ds_bn"], bs["ds_bn"])
+    sd["regressor.weight"] = _dense(params["regressor"]["kernel"])
+    sd["regressor.bias"] = _t(params["regressor"]["bias"])
+    return sd
+
+
+def arniqa_from_hub(state_dict: Mapping[str, Any]
+                    ) -> Dict[str, torch.Tensor]:
+    """ARNIQA hub ``state_dict`` (``encoder.model.*`` torchvision ResNet-50,
+    ``regressor.*``) -> port state dict: the unused classification head
+    ``encoder.model.fc.*`` is dropped, BatchNorm's ``num_batches_tracked``
+    counters are kept as integers, everything else becomes float32."""
+    sd = {}
+    for key, v in _strip(state_dict).items():
+        if key.startswith("encoder.model.fc."):
+            continue
+        sd[key] = torch.as_tensor(v).detach().clone() \
+            if key.endswith("num_batches_tracked") else _t(v)
     return sd
 
 

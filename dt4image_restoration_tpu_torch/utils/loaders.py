@@ -1,8 +1,10 @@
 """Checkpoint -> model loaders for the port's CLI.
 
-Both read a reference PyTorch ``.pt`` checkpoint and fall back to random
-weights from a fixed seed, with a loud stderr warning, when the path is
-missing (the smoke-test mode of the JAX package's loaders).
+The DT and U-Net loaders read a reference PyTorch ``.pt`` checkpoint and
+fall back to random weights from a fixed seed, with a loud stderr warning,
+when the path is missing (the smoke-test mode of the JAX package's
+loaders). The ARNIQA loader reads the hub checkpoint and has no fallback:
+the CLI scores with the proxy instead.
 """
 from __future__ import annotations
 
@@ -12,9 +14,11 @@ import sys
 import torch
 
 from ..config import ModelConfig
+from ..models.arniqa import ARNIQA
 from ..models.decision_transformer import DecisionTransformer, init_dt_params
 from ..models.unet import UNetDenoiser, random_unet_state_dict
-from .convert import dt_from_reference, load_strict, unet_from_reference
+from .convert import (arniqa_from_hub, dt_from_reference, load_strict,
+                      unet_from_reference)
 from .device import resolve_device
 
 
@@ -49,3 +53,11 @@ def load_dt(cfg: ModelConfig, path: str, device="cuda", seed: int = 0
               "weights (smoke-test mode)", file=sys.stderr)
         sd = init_dt_params(cfg, seed)
     return _prepare(load_strict(model, sd, "DT checkpoint"), dev)
+
+
+def load_arniqa(path: str, device="cuda") -> ARNIQA:
+    """ARNIQA from a hub checkpoint (torchvision ResNet-50 names under
+    ``encoder.model.``), loaded strictly; the ``fc.*`` head is dropped."""
+    dev = resolve_device(device)
+    sd = arniqa_from_hub(torch.load(path, map_location="cpu"))
+    return _prepare(load_strict(ARNIQA(), sd, "ARNIQA checkpoint"), dev)

@@ -11,13 +11,20 @@ import numpy as np
 import pytest
 import torch
 
-from dt4image_restoration_tpu_torch.config import ModelConfig
+from dt4image_restoration_tpu_torch.config import MCTSConfig, ModelConfig
+from dt4image_restoration_tpu_torch.data import (EvaluationDataset,
+                                                 write_eval_dir)
+from dt4image_restoration_tpu_torch.inference import MCTS
 from dt4image_restoration_tpu_torch.models import (DecisionTransformer,
                                                    UNetDenoiser,
                                                    init_dt_params,
+                                                   make_dt_apply,
+                                                   proxy_value_fn,
                                                    random_unet_state_dict)
+from dt4image_restoration_tpu_torch.ops.kernels import attention as k4
 from dt4image_restoration_tpu_torch.ops.kernels import conv_block as k1
 from dt4image_restoration_tpu_torch.ops.kernels import kspace as k2
+from dt4image_restoration_tpu_torch.ops.kernels import layernorm as k5
 from dt4image_restoration_tpu_torch.ops.kernels import transformer as k3
 from dt4image_restoration_tpu_torch.utils.device import resolve_device
 
@@ -100,3 +107,104 @@ def test_unet_on_card_matches_cpu(dev):
     torch.cuda.synchronize()
     assert k1.launches == before + 2          # inc and up4
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("shape", [(16, 4, 18, 32), (63, 4, 18, 32),
+                                   (3, 4, 12, 32), (2, 2, 32, 64),
+                                   (1, 3, 1, 20)])
+def test_attention_kernel_matches_plain(dev, shape):
+    rng = np.random.default_rng(4)
+    q, k, v = (_f32(rng, shape).to(dev) for _ in range(3))
+    before = k4.launches
+    got = k4.fused_causal_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1
+    ref = k4.fused_causal_attention_plain(q, k, v)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    strided = torch.zeros(shape[:-1] + (2 * shape[-1],), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.fused_causal_attention(strided[..., ::2], k, v)
+    with pytest.raises(ValueError, match="T <= 32"):
+        x = torch.zeros((1, 1, 33, 8), device=dev)
+        k4.fused_causal_attention(x, x, x)
+
+
+@pytest.mark.parametrize("shape", [(288, 128), (1134, 128), (1, 128),
+                                   (7, 128), (4, 18, 128), (5, 68),
+                                   (3, 1024)])
+def test_layernorm_kernel_matches_plain(dev, shape):
+    rng = np.random.default_rng(5)
+    e = shape[-1]
+    x = (_f32(rng, shape) + 3.0).to(dev)
+    scale = (1 + _f32(rng, (e,), 0.1)).to(dev)
+    bias = _f32(rng, (e,), 0.1).to(dev)
+    before = k5.launches
+    got = k5.layernorm(x, scale, bias)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    ref = k5.layernorm_plain(x, scale, bias)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    strided = torch.zeros((8, 2 * e), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.layernorm(strided[:, ::2], scale, bias)
+
+
+def test_layernorm_kernel_refuses_unsupported_width(dev):
+    x = torch.zeros((2, 66), device=dev)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        k5.layernorm(x, torch.ones(66, device=dev),
+                     torch.zeros(66, device=dev))
+
+
+@pytest.mark.parametrize("three_token", [True, False])
+def test_per_op_dt_on_card_matches_cpu(dev, three_token):
+    """The per-op forward with use_pallas launches K4 once and K5 twice per
+    block (and K5 once more for the final norm) and matches the CPU."""
+    cfg = ModelConfig(use_pallas=True)
+    dt = DecisionTransformer(cfg).eval().requires_grad_(False)
+    dt.load_state_dict(init_dt_params(cfg, seed=1))
+    rng = np.random.default_rng(6)
+    args = [_f32(rng, (4, 6, 1)), torch.from_numpy(rng.uniform(
+        0, 1, (4, 6, 128 * 128)).astype(np.float32)),
+        torch.arange(6).expand(4, 6), torch.full((4, 6), 2),
+        _f32(rng, (4, 6, 3)) if three_token else None]
+    ref = make_dt_apply(dt)(*args)
+    dt.to(dev)
+    a4, a5 = k4.launches, k5.launches
+    got = make_dt_apply(dt)(*[None if a is None else a.to(dev)
+                              for a in args])
+    torch.cuda.synchronize()
+    assert (k4.launches - a4, k5.launches - a5) == (5, 11)
+    torch.testing.assert_close(got.pred_actions.cpu(), ref.pred_actions,
+                               rtol=1e-4, atol=1e-5)
+    if three_token:
+        torch.testing.assert_close(got.pred_rtg.cpu(), ref.pred_rtg,
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_search_on_card_matches_cpu(dev, tmp_path):
+    """Three search rounds of two trees at the published widths: the card's
+    traces equal the CPU's, priors and rewards agree."""
+    cfg = ModelConfig(use_pallas=True)
+    d = write_eval_dir(str(tmp_path / "4_15"), "4_15", n=2, seed=9)
+    records = [EvaluationDataset(d, 5.0)[i] for i in range(2)]
+    runs = []
+    for device in ("cpu", dev):
+        dt = DecisionTransformer(cfg).eval().requires_grad_(False)
+        dt.load_state_dict(init_dt_params(cfg, seed=0))
+        with torch.no_grad():
+            dt.predict_action.bias[0] = -3.0   # T: no early stops
+        unet = UNetDenoiser().eval().requires_grad_(False)
+        unet.load_state_dict(random_unet_state_dict(0))
+        m = MCTS(dt=dt.to(device), denoise=unet.to(device), model_cfg=cfg,
+                 cfg=MCTSConfig(iterations=3, max_timesteps=8),
+                 value_fn=proxy_value_fn, record_trace=True, device=device)
+        runs.append((m.run_batch(records, seeds=[0, 1]), m.traces))
+    (r_cpu, t_cpu), (r_gpu, t_gpu) = runs
+    key = ("iter", "time", "edge", "index")
+    for a, b in zip(t_gpu, t_cpu):
+        assert [[e[k] for k in key] for e in a] \
+            == [[e[k] for k in key] for e in b]
+        for x, y in zip(a, b):
+            np.testing.assert_allclose(x["probs"], y["probs"], rtol=1e-4)
+    np.testing.assert_allclose(r_gpu, r_cpu, rtol=0, atol=0.05)

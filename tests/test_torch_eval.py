@@ -148,6 +148,28 @@ def test_uncached_encoder_matches_cached(eval_dirs, denoisers):
     np.testing.assert_allclose(a["reward"], b["reward"], rtol=1e-5)
 
 
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_evaluator_per_op_apply_matches_fused(eval_dirs, denoisers,
+                                              use_pallas):
+    """The evaluator runs the forward it is given: the per-op forward (K4
+    and K5, or plain ops) gives the default fused forward's (K3) result."""
+    model_den, _ = denoisers
+    cfg = ModelConfig(**CFG_KW, use_pallas=use_pallas)
+    torch.manual_seed(1)
+    dt = DecisionTransformer(cfg).eval().requires_grad_(False)
+    dt.predict_action.bias[0] = -3.0     # T: no image stops early
+    records = [EvaluationDataset(d, 10.0)[0] for d in eval_dirs]
+    kw = dict(dt=dt, denoise=model_den, cfg=cfg, max_timesteps=8,
+              device="cpu")
+    fused = Evaluator(**kw).evaluate_records(records)
+    per_op = Evaluator(dt_apply=tdt.make_dt_apply(dt),
+                       **kw).evaluate_records(records)
+    np.testing.assert_array_equal(per_op["episode_len"], 8)
+    np.testing.assert_array_equal(fused["episode_len"], 8)
+    np.testing.assert_allclose(per_op["reward"], fused["reward"], rtol=0,
+                               atol=1e-4)
+
+
 def _stub_policy(xp, module):
     """A deterministic stand-in for the DT, written once per framework:
     each image stops at a timestep set by its task token, and the other

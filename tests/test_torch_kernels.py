@@ -1,4 +1,5 @@
-"""The port's kernels (K1 conv_block, K2 kspace, K3 dt_decode).
+"""The port's kernels (K1 conv_block, K2 kspace, K3 dt_decode, K4 attention,
+K5 layernorm).
 
 On the CPU each wrapper runs its plain PyTorch version, which is held here
 against the JAX package's Pallas kernel run in interpret mode on the same
@@ -16,13 +17,16 @@ from dt4image_restoration_tpu.config import ModelConfig as JModelConfig
 from dt4image_restoration_tpu.models.decision_transformer import (
     init_dt_params as j_init_dt_params)
 from dt4image_restoration_tpu.ops.pallas import (
+    fused_causal_attention as j_fused_causal_attention,
     fused_conv_block as j_fused_conv_block,
-    kspace_consistency_pallas)
+    kspace_consistency_pallas, layernorm_pallas)
 from dt4image_restoration_tpu.ops.pallas.transformer import (
     fused_dt_decode as j_fused_dt_decode, pack_dt_weights as j_pack)
 from dt4image_restoration_tpu_torch.config import ModelConfig
 from dt4image_restoration_tpu_torch.ops import kernels
+from dt4image_restoration_tpu_torch.ops.kernels import attention as k4
 from dt4image_restoration_tpu_torch.ops.kernels import conv_block as k1
+from dt4image_restoration_tpu_torch.ops.kernels import layernorm as k5
 from dt4image_restoration_tpu_torch.ops.kernels import kspace as k2
 from dt4image_restoration_tpu_torch.ops.kernels import transformer as k3
 from dt4image_restoration_tpu_torch.utils.convert import dt_from_jax
@@ -141,11 +145,48 @@ def test_pack_dt_weights_matches_jax(dt_params):
         np.testing.assert_array_equal(ours[k].numpy(), np.asarray(theirs[k]))
 
 
+# --- K4 -----------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(2, 4, 18, 32), (3, 4, 12, 32),
+                                   (1, 2, 5, 16)])
+def test_attention_plain_matches_pallas(rng, shape):
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for _ in range(3))
+    ref = np.asarray(j_fused_causal_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True))
+    got = k4.fused_causal_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v))
+    assert got.shape == shape
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)
+
+
+# --- K5 -----------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(18, 128), (126, 128), (300, 128),
+                                   (4, 18, 128), (5, 68)])
+def test_layernorm_plain_matches_pallas(rng, shape):
+    e = shape[-1]
+    # An offset mean, so a one-pass variance would show.
+    x = (rng.standard_normal(shape) + 3.0).astype(np.float32)
+    scale = (1 + 0.1 * rng.standard_normal(e)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(e)).astype(np.float32)
+    ref = np.asarray(layernorm_pallas(jnp.asarray(x), jnp.asarray(scale),
+                                      jnp.asarray(bias), interpret=True))
+    got = k5.layernorm(torch.from_numpy(x), torch.from_numpy(scale),
+                       torch.from_numpy(bias))
+    assert got.shape == shape
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)
+
+
 # --- launch counts --------------------------------------------------------
 
 def test_plain_path_counts_no_launches(rng):
     kernels.reset_launch_counts()
     ws, bs = _block_params(rng, 2, 8, 3)
     k1.fused_conv_block(torch.zeros((1, 8, 8, 2)), _t(ws), _t(bs))
+    x = torch.zeros((1, 4, 6, 8))
+    k4.fused_causal_attention(x, x, x)
+    k5.layernorm(x, torch.ones(8), torch.zeros(8))
     assert kernels.launch_counts() == {"conv_block": 0, "kspace": 0,
-                                       "dt_decode": 0}
+                                       "dt_decode": 0, "attention": 0,
+                                       "layernorm": 0}

@@ -16,7 +16,7 @@ from dt4image_restoration_tpu.utils.checkpoint import (
 from dt4image_restoration_tpu_torch.config import ModelConfig
 from dt4image_restoration_tpu_torch.models import (
     DecisionTransformer, UNetDenoiser, make_dt_apply, make_dt_embed_apply,
-    make_state_encode)
+    make_fused_dt_apply, make_state_encode)
 from dt4image_restoration_tpu_torch.utils.convert import (
     dt_from_jax, dt_from_reference, load_strict, unet_from_jax,
     unet_from_reference)
@@ -142,17 +142,72 @@ def test_dt_matches_jax(rng, dt_pair, three_token, mode):
         assert got.pred_rtg is None
 
 
+@pytest.mark.parametrize("three_token", [True, False])
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_dt_per_op_kernel_flag_matches_jax(rng, dt_pair, use_pallas,
+                                           three_token):
+    """The per-op forward with K4 and K5 (their plain versions here)
+    against the JAX forward with the same flag, whose Pallas kernels run in
+    interpret mode."""
+    _, params, _, _ = dt_pair
+    cfg = ModelConfig(**CFG_KW, use_pallas=use_pallas)
+    jcfg = JModelConfig(**CFG_KW, use_pallas=use_pallas)
+    model = load_strict(DecisionTransformer(cfg), dt_from_jax(params, cfg),
+                        "dt").eval().requires_grad_(False)
+    rtg, states, ts, task, actions = _dt_inputs(rng)
+    acts = actions if three_token else None
+    ref = jax.jit(j_make_dt_apply(jcfg))(
+        params, jnp.asarray(rtg), jnp.asarray(states), jnp.asarray(ts),
+        jnp.asarray(task), None if acts is None else jnp.asarray(acts))
+    got = make_dt_apply(model)(
+        torch.from_numpy(rtg), torch.from_numpy(states),
+        torch.from_numpy(ts.copy()), torch.from_numpy(task),
+        None if acts is None else torch.from_numpy(acts))
+    np.testing.assert_allclose(got.pred_actions.numpy(),
+                               np.asarray(ref.pred_actions), rtol=2e-3,
+                               atol=1e-6)
+    if three_token:
+        np.testing.assert_allclose(got.pred_rtg.numpy(),
+                                   np.asarray(ref.pred_rtg), rtol=2e-3,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("three_token", [True, False])
+def test_fused_dt_apply_matches_per_op(rng, dt_pair, three_token):
+    """K3's forward (its plain version here) against the per-op forward,
+    also over cached state embeddings."""
+    _, _, _, model = dt_pair
+    rtg, states, ts, task, actions = _dt_inputs(rng, b=2)
+    args = [torch.from_numpy(a.copy()) for a in (rtg, states, ts, task)]
+    acts = torch.from_numpy(actions) if three_token else None
+    per_op = make_dt_apply(model)(*args, acts)
+    fused = make_fused_dt_apply(model)(*args, acts)
+    embs = make_state_encode(model)(args[1].reshape(-1, 48 * 48))
+    fused_cached = make_fused_dt_apply(model)(
+        args[0], None, *args[2:], acts,
+        state_embeddings=embs.reshape(2, 6, -1))
+    for out in (fused, fused_cached):
+        torch.testing.assert_close(out.pred_actions, per_op.pred_actions,
+                                   rtol=1e-5, atol=1e-6)
+        if three_token:
+            torch.testing.assert_close(out.pred_rtg, per_op.pred_rtg,
+                                       rtol=1e-5, atol=1e-6)
+        else:
+            assert out.pred_rtg is None
+
+
 def test_dt_cached_state_embeddings_match(rng, dt_pair):
     _, _, _, model = dt_pair
     rtg, states, ts, task, actions = _dt_inputs(rng, b=2)
     args = [torch.from_numpy(a.copy()) for a in (rtg, states, ts, task,
                                                  actions)]
-    full = make_dt_apply(model)(*args)
     embs = make_state_encode(model)(args[1].reshape(-1, 48 * 48))
-    cached = make_dt_embed_apply(model)(args[0], embs.reshape(2, 6, -1),
-                                        *args[2:])
-    torch.testing.assert_close(cached.pred_actions, full.pred_actions)
-    torch.testing.assert_close(cached.pred_rtg, full.pred_rtg)
+    for make_apply in (make_dt_apply, make_fused_dt_apply):
+        full = make_apply(model)(*args)
+        cached = make_dt_embed_apply(make_apply(model))(
+            args[0], embs.reshape(2, 6, -1), *args[2:])
+        torch.testing.assert_close(cached.pred_actions, full.pred_actions)
+        torch.testing.assert_close(cached.pred_rtg, full.pred_rtg)
 
 
 def test_dt_reference_layout_loads(dt_pair):

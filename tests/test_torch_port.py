@@ -1,7 +1,10 @@
 """Package-level properties of the PyTorch port: it imports nothing of JAX
 or of the JAX package, its entry points refuse to fall back to the CPU, and
-its command line evaluates .mat directories."""
+its command line evaluates and searches .mat directories, printing the JAX
+command line's labels."""
+import functools
 import os
+import re
 import subprocess
 import sys
 
@@ -20,13 +23,32 @@ PORT_MODULES = [
     "dt4image_restoration_tpu_torch.data",
     "dt4image_restoration_tpu_torch.env",
     "dt4image_restoration_tpu_torch.inference",
+    "dt4image_restoration_tpu_torch.inference.mcts",
     "dt4image_restoration_tpu_torch.models",
+    "dt4image_restoration_tpu_torch.models.arniqa",
     "dt4image_restoration_tpu_torch.ops",
     "dt4image_restoration_tpu_torch.ops.kernels",
     "dt4image_restoration_tpu_torch.ops.kernels._build",
     "dt4image_restoration_tpu_torch.utils.convert",
     "dt4image_restoration_tpu_torch.utils.loaders",
 ]
+
+
+# The labels of the lines the JAX command line prints (main.py cmd_flex and
+# cmd_mcts, inference/evaluator.py Evaluator.run, inference/mcts.py
+# MCTS.run_batch); print() puts a space between its arguments.
+JAX_LABELS = {
+    "flex": {"Test for reward increment: ", "Average iter,  ",
+             "Average reward,  ", "PSNR increment  ", "Average increment: "},
+    "mcts": {"MCTS Reward:  ", "Total MCTS reward: "},
+}
+
+
+def _labels(stdout):
+    """The label of every non-blank output line: its text up to the first
+    digit or minus sign."""
+    return {re.split(r"[-\d]", ln, maxsplit=1)[0] for ln in
+            stdout.splitlines() if ln.strip()}
 
 
 def _run(code_or_args, cwd=REPO, timeout=300):
@@ -54,25 +76,33 @@ def test_port_imports_no_jax():
     assert r.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("entry", ["reset", "loader", "evaluator", "env"])
+@pytest.mark.parametrize("entry", ["reset", "loader", "evaluator", "env",
+                                   "search", "arniqa"])
 def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    from dt4image_restoration_tpu_torch.config import ModelConfig
+    from dt4image_restoration_tpu_torch.config import MCTSConfig, ModelConfig
     from dt4image_restoration_tpu_torch.data import make_mat_record
     from dt4image_restoration_tpu_torch.env import PnPEnv, reset_from_mat
-    from dt4image_restoration_tpu_torch.inference import Evaluator
+    from dt4image_restoration_tpu_torch.inference import MCTS, Evaluator
     from dt4image_restoration_tpu_torch.models import (DecisionTransformer,
-                                                       UNetDenoiser)
-    from dt4image_restoration_tpu_torch.utils.loaders import load_denoiser
+                                                       UNetDenoiser,
+                                                       proxy_value_fn)
+    from dt4image_restoration_tpu_torch.utils.loaders import (load_arniqa,
+                                                              load_denoiser)
+    cfg = ModelConfig(embed_dim=32, n_blocks=1, image_size=48)
     with pytest.raises(RuntimeError, match="pass device='cpu'"):
         if entry == "reset":
             reset_from_mat(make_mat_record(size=16))
         elif entry == "loader":
             load_denoiser(str(tmp_path / "missing.pt"))
         elif entry == "evaluator":
-            cfg = ModelConfig(embed_dim=32, n_blocks=1, image_size=48)
             Evaluator(dt=DecisionTransformer(cfg), denoise=UNetDenoiser(8),
                       cfg=cfg)
+        elif entry == "search":
+            MCTS(dt=DecisionTransformer(cfg), denoise=UNetDenoiser(8),
+                 model_cfg=cfg, cfg=MCTSConfig(), value_fn=proxy_value_fn)
+        elif entry == "arniqa":
+            load_arniqa(str(tmp_path / "missing.pt"))
         else:
             PnPEnv(UNetDenoiser(8)).reset(make_mat_record(size=16))
 
@@ -95,8 +125,8 @@ def test_cli_eval_on_cpu(tmp_path):
 
 
 def test_cli_flex_on_cpu(tmp_path):
-    """flex evaluates every RTG target of the flexible experiment and ends
-    with the reference's total line."""
+    """flex evaluates every RTG target of the flexible experiment and, like
+    the JAX command line, prints no search total."""
     from dt4image_restoration_tpu_torch.data import write_eval_dir
     d = write_eval_dir(str(tmp_path / "8_5"), "8_5", n=1, size=128)
     r = _run(["-m", "dt4image_restoration_tpu_torch", "--block_size", "18",
@@ -108,5 +138,34 @@ def test_cli_flex_on_cpu(tmp_path):
     out = r.stdout.splitlines()
     assert sum(ln.startswith("Test for reward increment") for ln in out) == 5
     assert sum(ln.startswith("Average increment") for ln in out) == 5
-    assert np.isfinite(float(out[-1].split(":", 1)[1])), out[-1]
+    assert np.isfinite(float(out[-2].split(":", 1)[1])), out[-2]
+    assert out[-2].startswith("Average increment:")
+    assert not any("MCTS" in ln for ln in out)
+    assert _labels(r.stdout) == JAX_LABELS["flex"]
+
+
+def test_cli_mcts_on_cpu(tmp_path, monkeypatch, capsys):
+    """mcts searches every image of the directory with the proxy scorer
+    (no ARNIQA weights) and prints a reward per image and the total. The
+    command line runs in-process with the search cut to two iterations,
+    which keeps the full-width models quick on the CPU."""
+    from dt4image_restoration_tpu_torch import __main__ as cli
+    from dt4image_restoration_tpu_torch import config
+    from dt4image_restoration_tpu_torch.data import write_eval_dir
+    d = write_eval_dir(str(tmp_path / "4_15"), "4_15", n=2, size=128)
+    monkeypatch.setattr(config, "MCTSConfig",
+                        functools.partial(config.MCTSConfig, iterations=2))
+    cli.main(["--block_size", "18", "--n_embeds", "9", "--device", "cpu",
+              "mcts", "--rtg", "5", "--max_timesteps", "6",
+              "--checkpoint", str(tmp_path / "n.pt"),
+              "--denoiser_ckpt", str(tmp_path / "n.pt"), "--data_dirs", d])
+    r = capsys.readouterr()
+    assert "no ARNIQA checkpoint; using the documented no-ref proxy" \
+        in r.err
+    out = r.out.splitlines()
+    per_image = [float(ln.split(":", 1)[1]) for ln in out
+                 if ln.startswith("MCTS Reward: ")]
+    assert len(per_image) == 2 and all(0 < v < 60 for v in per_image)
     assert out[-1].startswith("Total MCTS reward:")
+    assert float(out[-1].split(":", 1)[1]) == pytest.approx(sum(per_image))
+    assert _labels(r.out) == JAX_LABELS["mcts"]
