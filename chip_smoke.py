@@ -19,7 +19,10 @@ prints one JSON line per phase. The paths:
     the per-op policy forward (K1, K2, K4, K5) and the proxy scorer; then
     ARNIQA scores of 16 slices on the card and on the CPU.
 
-Launches are counted per path, from zero just before it to just after it.
+K1 is timed at the batches of these paths (1, 16, 63 and 96 slices) and
+bounded by the 3xTF32 tensor-core rate; the run fails if its build spills
+registers. Launches are counted per path, from zero just before it to just
+after it.
 The line before the last is the kernel summary; the last line is the device
 summary. Any failure ends the run with a traceback and a non-zero exit
 code.
@@ -35,6 +38,7 @@ import itertools
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -44,7 +48,11 @@ MU, SIGMA_D = 0.5, 15.0 / 255.0       # the fixed-parameter rollout's action
 EVAL_BATCH = 63                        # 9 directories x 7 images
 SEARCH_BATCH = 16                      # trees per search chunk (CLI default)
 SEARCH_RTG = 5.0
+EXPANSION_BATCH = 96                   # the search's 6-slot expansion
 H100_F32_FLOPS = 67e12                 # float32 outside the tensor cores
+# K1 runs float32-accurate products on the TF32 tensor cores (495 TFLOP/s)
+# as three TF32 products each (3xTF32).
+H100_3XTF32_FLOPS = 495e12 / 3
 H100_BYTES_PER_S = 3.35e12             # HBM3
 REPLACES = {
     "conv_block": "dt4image_restoration_tpu/ops/pallas/conv_block.py:134",
@@ -70,12 +78,26 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(flops: float, nbytes: float):
-    """Least time on the H100 (ms) for ``flops`` float32 operations and
-    ``nbytes`` of compulsory traffic, and which of the two bounds it."""
-    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak: float = H100_F32_FLOPS):
+    """Least time on the H100 (ms) for ``flops`` operations at ``peak``
+    operations/s and ``nbytes`` of compulsory traffic, and which of the two
+    bounds it."""
+    t_ops, t_bytes = flops / peak, nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def sass_counts(library):
+    """Tensor-core TF32 and scalar FMA instructions in a built library's
+    SASS, from ``cuobjdump -sass``; None where the tool is missing."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    return {"hmma_tf32": len(re.findall(r"\bHMMA\.\S*TF32", sass)),
+            "ffma": len(re.findall(r"\bFFMA\b", sass))}
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -134,13 +156,21 @@ def phase_device(torch, kernels_build):
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     build_s = kernels_build.build()
-    ptxas = {name: [ln.strip() for ln in log.splitlines()
+    ptxas = {name: [ln.strip() for ln in
+                    kernels_build.build_log(name).splitlines()
                     if "registers" in ln or "spill" in ln]
-             for name, log in kernels_build.build_logs.items()}
+             for name in kernels_build.KERNEL_SOURCES}
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "build_s": build_s, "ptxas": ptxas})
+          "build_s": build_s, "ptxas": ptxas,
+          "conv_block_sass": sass_counts(
+              kernels_build.library_path("conv_block"))})
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                        kernels_build.build_log("conv_block"))
+    if not spills or any(n != "0" for n in spills):
+        raise AssertionError(f"conv_block spills registers: "
+                             f"{ptxas['conv_block']}")
 
 
 def phase_kernels(torch, dev):
@@ -172,9 +202,11 @@ def phase_kernels(torch, dev):
     rows = []
 
     def record(kernel, shape, got, ref, ms, plain_ms, library_ms, flops,
-               nbytes, call_ms=None):
+               nbytes, call_ms=None, peak=H100_F32_FLOPS, peak_name=""):
         abs_err, rel_err = max_errors(got, ref)
-        bound_ms, bound_by = bound(flops, nbytes)
+        bound_ms, bound_by = bound(flops, nbytes, peak)
+        if peak_name and bound_by == "operations":
+            bound_by = f"operations ({peak_name})"
         row = {"phase": "kernel", "kernel": kernel, "shape": shape,
                "max_abs_err": abs_err, "max_rel_err": rel_err,
                "tolerance": TOLERANCE[kernel], "kernel_ms": ms,
@@ -187,11 +219,13 @@ def phase_kernels(torch, dev):
                                  f"over {TOLERANCE[kernel]}")
         rows.append(row)
 
-    # K1 at the U-Net's two full-resolution blocks.
+    # K1 at the U-Net's two full-resolution blocks, at the batches of the
+    # paths: one slice, the search's rollouts, the evaluation batch and the
+    # search's expansion.
     for name, block, cin in (("inc", unet.net.inc, 2),
                              ("up4", unet.net.up4, 96)):
         packed = block.packed()
-        for b in (1, EVAL_BATCH):
+        for b in (1, SEARCH_BATCH, EVAL_BATCH, EXPANSION_BATCH):
             x = torch.rand((b, cin, 128, 128), generator=gen, device=dev)
             got = k1.conv_block(x, packed)
             ref = k1.conv_block_plain(x, packed)
@@ -212,7 +246,8 @@ def phase_kernels(torch, dev):
                    time_ms(torch, lambda: k1.conv_block(x, packed), iters),
                    time_ms(torch, lambda: k1.conv_block_plain(x, packed),
                            iters),
-                   time_ms(torch, library, iters), flops, nbytes)
+                   time_ms(torch, library, iters), flops, nbytes,
+                   peak=H100_3XTF32_FLOPS, peak_name="3xTF32")
 
     # K2 on the k-space of 128x128 slices. K2, K4 and K5 take microseconds,
     # less than the wrapper's host cost per call: their kernel_ms, plain_ms
@@ -612,7 +647,7 @@ def main() -> int:
             "call_ms": sum(calls) if calls else None,
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": sum(r["bound_ms"] for r in mine),
-            "bound_by": mine[0]["bound_by"],
+            "bound_by": mine[0]["bound_by"].split()[0],
             "library_ms": None if mine[0]["library_ms"] is None
             else sum(r["library_ms"] for r in mine),
             "shapes": [r["shape"] for r in mine]})

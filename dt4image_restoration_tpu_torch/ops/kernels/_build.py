@@ -29,9 +29,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
-# ptxas report (registers, shared memory, spills) of each build in this
-# process, by source name.
-build_logs: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -51,6 +48,14 @@ def library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build_log(name: str) -> str:
+    """The compiler's report (ptxas registers, shared memory, spills) of the
+    current library of ``csrc/<name>.cu``, kept beside it; empty before the
+    first build."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def build(names: Optional[Iterable[str]] = None) -> float:
@@ -74,10 +79,10 @@ def build(names: Optional[Iterable[str]] = None) -> float:
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        build_logs[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

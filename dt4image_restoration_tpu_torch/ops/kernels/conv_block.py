@@ -4,15 +4,22 @@ Replaces the TPU kernel ``fused_conv_block``
 (``dt4image_restoration_tpu/ops/pallas/conv_block.py``): L chained
 [3x3 SAME conv + bias + LeakyReLU] layers of equal width F whose
 intermediate activations stay on chip. On the H100 the block is bound by
-arithmetic (0.6 and 1.5 GFLOP per 128x128 image at inc and up4); the kernel
-tiles the output in 16x16 tiles with a recomputed halo of one pixel per
-layer, keeps both intermediates in shared memory and streams layer 0's
-input channels through it 16 at a time. See the source for the details.
+tensor-core operations: each layer is an implicit GEMM (pixels x F over 9
+taps x input channels) on ``mma.sync`` TF32 tiles, and to stay
+float32-accurate every operand is split into two TF32 parts and each
+product taken three times (3xTF32), so the least time is 3x the flops over
+the 495 TFLOP/s TF32 peak. The kernel tiles the output in 16x16 tiles with
+a recomputed halo of one pixel per layer, keeps both intermediates in
+shared memory and streams layer 0's input channels through it 16 at a
+time, the next chunk copied with ``cp.async`` while the current one runs.
+:func:`pack_conv_block` splits and swizzles the weights once, into the
+order in which the kernel's lanes read them, so the kernel splits only the
+activations. See the source for the details.
 
 :func:`conv_block` is the wrapper on NCHW tensors that the U-Net calls;
 :func:`fused_conv_block` takes NHWC input and HWIO weights like the JAX
 function. :func:`conv_block_plain` is the plain PyTorch version: the same
-nine shifted tap products per layer, as matmuls.
+nine shifted tap products per layer, as float32 matmuls.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ import torch.nn.functional as F
 from . import _build
 
 __all__ = ["PackedConvBlock", "conv_block", "conv_block_plain",
-           "fused_conv_block", "pack_conv_block"]
+           "fused_conv_block", "pack_conv_block", "tf32_round"]
 
 launches = 0  # kernel launches since the last reset
 
@@ -40,12 +47,14 @@ class PackedConvBlock:
     """A block's weights in the kernel's layout.
 
     ``weights`` is one flat float32 buffer: layer 0 as (Cin, 3, 3, F), each
-    later layer as (F, 3, 3, F). ``biases`` is (L, F).
+    later layer as (F, 3, 3, F). ``biases`` is (L, F). ``tc_weights`` is
+    what the kernel reads: per layer, :func:`_fragments` of its weights.
     """
     weights: torch.Tensor
     biases: torch.Tensor
     cin: int
     features: int
+    tc_weights: torch.Tensor
 
     @property
     def layers(self) -> int:
@@ -58,6 +67,42 @@ class PackedConvBlock:
             return self.weights[:cin * 9 * f].view(cin, 3, 3, f)
         start = cin * 9 * f + (layer - 1) * 9 * f * f
         return self.weights[start:start + 9 * f * f].view(f, 3, 3, f)
+
+    def layer_fragments(self, layer: int) -> torch.Tensor:
+        """(Ci/8, 9, F/8, 8, 4, 4) view of one layer's ``tc_weights``, Ci
+        and F padded to multiples of 8."""
+        groups0, nt = -(-self.cin // 8), -(-self.features // 8)
+        size = 9 * nt * 128                 # floats per 8-channel group
+        groups = groups0 if layer == 0 else nt
+        start = 0 if layer == 0 else (groups0 + (layer - 1) * nt) * size
+        return self.tc_weights[start:start + groups * size].view(
+            groups, 9, nt, 8, 4, 4)
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """Float32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` does: the low 13 bits come out zero."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _fragments(w: torch.Tensor) -> torch.Tensor:
+    """One layer's (Ci, 3, 3, F) weights in the kernel's B-fragment order.
+
+    Ci and F are zero-padded to multiples of 8. For each group of 8 input
+    channels, tap and n-tile of 8 outputs, lane ``4g + t`` of a warp holds
+    ``(b0 hi, b1 hi, b0 lo, b1 lo)``: the weights of input channels t and
+    t + 4 to output g, each split into ``hi = tf32(w)`` and
+    ``lo = tf32(w - hi)``. Shape (Ci/8, 9, F/8, 8, 4, 4), flattened.
+    """
+    ci, _, _, f = w.shape
+    cp, fp = -(-ci // 8) * 8, -(-f // 8) * 8
+    w = F.pad(w.detach().float(), (0, fp - f, 0, 0, 0, 0, 0, cp - ci))
+    # channel = 8 group + 4 half + t, output = 8 n-tile + g
+    w = w.reshape(cp // 8, 2, 4, 9, fp // 8, 8).permute(0, 3, 4, 5, 2, 1)
+    hi = tf32_round(w)
+    lo = tf32_round(w - hi)
+    return torch.cat([hi, lo], dim=-1).reshape(-1)
 
 
 def pack_conv_block(weights: Sequence[torch.Tensor],
@@ -76,7 +121,8 @@ def pack_conv_block(weights: Sequence[torch.Tensor],
     return PackedConvBlock(
         weights=torch.cat([w.reshape(-1) for w in ws]),
         biases=torch.stack(list(biases)).contiguous(),
-        cin=cin, features=feats)
+        cin=cin, features=feats,
+        tc_weights=torch.cat([_fragments(w) for w in ws]))
 
 
 def conv_block_plain(x: torch.Tensor, packed: PackedConvBlock,
@@ -131,7 +177,7 @@ def conv_block(x: torch.Tensor, packed: PackedConvBlock,
             f"conv_block kernel takes F % 8 == 0, F <= {MAX_FEATURES} and "
             f"1..{MAX_LAYERS} layers; got F={packed.features}, "
             f"L={packed.layers}")
-    for name, t in (("x", x), ("weights", packed.weights),
+    for name, t in (("x", x), ("weights", packed.tc_weights),
                     ("biases", packed.biases)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -144,7 +190,7 @@ def conv_block(x: torch.Tensor, packed: PackedConvBlock,
         return out
     fn = _lib()
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), packed.weights.data_ptr(),
+        rc = fn(x.data_ptr(), packed.tc_weights.data_ptr(),
                 packed.biases.data_ptr(), out.data_ptr(), b, packed.cin, h,
                 w, packed.features, packed.layers, float(negative_slope),
                 _build.stream_handle(x.device))

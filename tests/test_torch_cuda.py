@@ -48,6 +48,8 @@ def _f32(rng, shape, scale=1.0):
     ((1, 96, 32, 32), 32, 3),    # up4-like: 6 input-channel chunks
     ((2, 5, 18, 17), 8, 2),      # odd width, narrow
     ((1, 3, 7, 9), 16, 1),       # smaller than one tile
+    ((2, 2, 128, 128), 32, 3),   # the U-Net's inc
+    ((2, 96, 128, 128), 32, 3),  # the U-Net's up4
 ])
 def test_conv_block_kernel_matches_plain(dev, shape, feats, layers):
     rng = np.random.default_rng(0)

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from dt4image_restoration_tpu.config import ModelConfig as JModelConfig
 from dt4image_restoration_tpu.models.decision_transformer import (
@@ -29,6 +30,8 @@ from dt4image_restoration_tpu_torch.ops.kernels import conv_block as k1
 from dt4image_restoration_tpu_torch.ops.kernels import layernorm as k5
 from dt4image_restoration_tpu_torch.ops.kernels import kspace as k2
 from dt4image_restoration_tpu_torch.ops.kernels import transformer as k3
+from dt4image_restoration_tpu_torch.models import (UNetDenoiser,
+                                                   random_unet_state_dict)
 from dt4image_restoration_tpu_torch.utils.convert import dt_from_jax
 from torch_port_common import one_torch_thread  # noqa: F401
 
@@ -76,10 +79,98 @@ def test_pack_conv_block_layouts_agree(rng):
         [torch.from_numpy(w.transpose(3, 2, 0, 1)) for w in ws], _t(bs))
     assert (hwio.cin, hwio.features, hwio.layers) == (5, 8, 3)
     torch.testing.assert_close(hwio.weights, oihw.weights, rtol=0, atol=0)
+    torch.testing.assert_close(hwio.tc_weights, oihw.tc_weights, rtol=0,
+                               atol=0)
     torch.testing.assert_close(hwio.layer_weight(1),
                                torch.from_numpy(ws[1]).permute(2, 0, 1, 3))
     with pytest.raises(ValueError, match="layer 1"):
         k1.pack_conv_block(_t([ws[0], ws[0]]), _t(bs[:2]), layout="hwio")
+
+
+def _unswizzle(frags):
+    """(G, 9, NT, 8, 4, 2) fragment halves -> (8G, 3, 3, 8NT) weights: the
+    inverse of the kernel's [group][tap][n-tile][g][t][half] order."""
+    groups, _, nt = frags.shape[:3]
+    return frags.permute(0, 5, 4, 1, 2, 3).reshape(groups * 8, 3, 3, nt * 8)
+
+
+_TC_SHAPES = [(2, 32, 3), (96, 32, 3), (5, 12, 2)]   # inc, up4, ragged
+
+
+@pytest.mark.parametrize("cin,feats,layers", _TC_SHAPES)
+def test_conv_block_tc_pack_round_trips(rng, cin, feats, layers):
+    """hi + lo gives back the float32 weights to 2^-22 relative, and hi is
+    TF32: its low 13 mantissa bits are zero."""
+    ws, bs = _block_params(rng, cin, feats, layers)
+    packed = k1.pack_conv_block(_t(ws), _t(bs), layout="hwio")
+    frags = packed.tc_weights.view(-1, 4)
+    hi, lo = frags[:, :2], frags[:, 2:]
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    total = sum(packed.layer_fragments(i).numel() for i in range(layers))
+    assert total == packed.tc_weights.numel()
+    for i in range(layers):
+        frag = packed.layer_fragments(i)
+        w = packed.layer_weight(i)
+        ci = w.shape[0]
+        both = (_unswizzle(frag[..., :2]) + _unswizzle(frag[..., 2:]))
+        rel = ((both[:ci, :, :, :feats] - w).abs() / w.abs()).max()
+        assert float(rel) <= 2.0 ** -22
+
+
+@pytest.mark.parametrize("cin,feats,layers", _TC_SHAPES)
+def test_conv_block_fragments_unswizzle_to_layer_weight(rng, cin, feats,
+                                                        layers):
+    """Undoing the fragment order gives back layer_weight(l): hi exactly as
+    its TF32 rounding, lo as the TF32 rounding of the rest, and zeros in the
+    channels padded to multiples of 8."""
+    ws, bs = _block_params(rng, cin, feats, layers)
+    packed = k1.pack_conv_block(_t(ws), _t(bs), layout="hwio")
+    for i in range(layers):
+        frag = packed.layer_fragments(i)
+        w = packed.layer_weight(i)
+        ci = w.shape[0]
+        hi, lo = _unswizzle(frag[..., :2]), _unswizzle(frag[..., 2:])
+        assert torch.equal(hi[:ci, :, :, :feats], k1.tf32_round(w))
+        assert torch.equal(lo[:ci, :, :, :feats],
+                           k1.tf32_round(w - k1.tf32_round(w)))
+        assert not hi[ci:].any() and not hi[..., feats:].any()
+        assert not lo[ci:].any() and not lo[..., feats:].any()
+
+
+def _tf32_block(x, packed, products):
+    """The block with every conv taken as TF32 products summed in float32,
+    as the kernel has the tensor cores do it: 1 product (hi hi) or 3 (lo hi
+    + hi lo + hi hi). Weights split as packed, hi = tf32(w) and
+    lo = tf32(w - hi); activations hi = tf32(x) and lo = x - hi truncated
+    to TF32, as the tensor core reads it."""
+    r = k1.tf32_round
+    for layer in range(packed.layers):
+        w = packed.layer_weight(layer).permute(3, 0, 1, 2).contiguous()
+        xh, wh = r(x), r(w)
+        y = F.conv2d(xh, wh, padding=1)
+        if products == 3:
+            xl = ((x - xh).view(torch.int32) & -0x2000).view(torch.float32)
+            y = (F.conv2d(xl, wh, padding=1)
+                 + F.conv2d(xh, r(w - wh), padding=1) + y)
+        x = F.leaky_relu(y + packed.biases[layer].view(1, -1, 1, 1), 0.2)
+    return x
+
+
+def test_three_tf32_products_are_float32_accurate():
+    """Why K1 takes three products: on an up4 block (96 -> 32, 864 terms
+    per output) 3xTF32 stays within 1e-5 of the float32 plain version,
+    while one TF32 product misses the kernel's 1e-4 tolerance."""
+    unet = UNetDenoiser()
+    unet.load_state_dict(random_unet_state_dict(0))
+    packed = unet.net.up4.packed()
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (1, 96, 24, 24)).astype(np.float32))
+    ref = k1.conv_block_plain(x, packed)
+    err3 = float((_tf32_block(x, packed, 3) - ref).abs().max())
+    err1 = float((_tf32_block(x, packed, 1) - ref).abs().max())
+    assert err3 <= 1e-5
+    assert err1 > 1e-4
 
 
 # --- K2 -----------------------------------------------------------------
