@@ -19,10 +19,13 @@ prints one JSON line per phase. The paths:
     the per-op policy forward (K1, K2, K4, K5) and the proxy scorer; then
     ARNIQA scores of 16 slices on the card and on the CPU.
 
-K1 is timed at the batches of these paths (1, 16, 63 and 96 slices) and
-bounded by the 3xTF32 tensor-core rate; the run fails if its build spills
-registers. Launches are counted per path, from zero just before it to just
-after it.
+K1 is timed at the batches of these paths (1, 16, 63 and 96 slices), K3
+at one slice and at 63, both bounded by the 3xTF32 tensor-core rate; K3 is
+also held against a chain of PyTorch's own calls for the same stack
+(``F.layer_norm``, ``F.linear``, ``F.scaled_dot_product_attention``,
+``F.gelu``), timed from a CUDA graph. The run fails if the build of K1 or
+K3 spills registers. Launches are counted per path, from zero just before
+it to just after it.
 The line before the last is the kernel summary; the last line is the device
 summary. Any failure ends the run with a traceback and a non-zero exit
 code.
@@ -54,6 +57,9 @@ H100_F32_FLOPS = 67e12                 # float32 outside the tensor cores
 # as three TF32 products each (3xTF32).
 H100_3XTF32_FLOPS = 495e12 / 3
 H100_BYTES_PER_S = 3.35e12             # HBM3
+# Kernels built around mma.sync: the device line reports their SASS counts,
+# and the run fails if their builds spill registers.
+TENSOR_CORE_KERNELS = ("conv_block", "dt_decode")
 REPLACES = {
     "conv_block": "dt4image_restoration_tpu/ops/pallas/conv_block.py:134",
     "kspace": "dt4image_restoration_tpu/ops/pallas/kspace.py:37",
@@ -164,13 +170,13 @@ def phase_device(torch, kernels_build):
           "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "ptxas": ptxas,
-          "conv_block_sass": sass_counts(
-              kernels_build.library_path("conv_block"))})
-    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)",
-                        kernels_build.build_log("conv_block"))
-    if not spills or any(n != "0" for n in spills):
-        raise AssertionError(f"conv_block spills registers: "
-                             f"{ptxas['conv_block']}")
+          **{f"{name}_sass": sass_counts(kernels_build.library_path(name))
+             for name in TENSOR_CORE_KERNELS}})
+    for name in TENSOR_CORE_KERNELS:
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                            kernels_build.build_log(name))
+        if not spills or any(n != "0" for n in spills):
+            raise AssertionError(f"{name} spills registers: {ptxas[name]}")
 
 
 def phase_kernels(torch, dev):
@@ -202,7 +208,8 @@ def phase_kernels(torch, dev):
     rows = []
 
     def record(kernel, shape, got, ref, ms, plain_ms, library_ms, flops,
-               nbytes, call_ms=None, peak=H100_F32_FLOPS, peak_name=""):
+               nbytes, call_ms=None, peak=H100_F32_FLOPS, peak_name="",
+               **extra):
         abs_err, rel_err = max_errors(got, ref)
         bound_ms, bound_by = bound(flops, nbytes, peak)
         if peak_name and bound_by == "operations":
@@ -212,7 +219,10 @@ def phase_kernels(torch, dev):
                "tolerance": TOLERANCE[kernel], "kernel_ms": ms,
                "call_ms": call_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "flops": flops, "bytes": nbytes}
+               "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+               **extra}
+        if peak != H100_F32_FLOPS:
+            row["bound_f32_ms"] = bound(flops, nbytes)[0]
         emit(row)
         if not abs_err <= TOLERANCE[kernel]:
             raise AssertionError(f"{kernel} {shape}: max abs error {abs_err} "
@@ -285,23 +295,56 @@ def phase_kernels(torch, dev):
                    torch, lambda: k2.kspace_consistency_kernel(*args), 200))
 
     # K3 on the policy's token batches: two-token (T=12) and three-token
-    # (T=18) forwards of 63 sequences.
+    # (T=18) forwards of one slice and of 63. kernel_ms, plain_ms and
+    # library_ms are device times from CUDA graphs; call_ms is the eager
+    # wrapper call. The library chain is the same stack in PyTorch's own
+    # fused calls; it must agree with the plain version like the kernel.
     packed = dt.packed_weights()
-    e, nb = cfg.embed_dim, cfg.n_blocks
-    w_bytes = 4.0 * sum(v.numel() for v in packed.values())
-    for t in (12, 18):
-        tokens = torch.randn((EVAL_BATCH, t, e), generator=gen, device=dev)
-        got = k3.fused_dt_decode(tokens, packed, nb, cfg.n_heads)
-        ref = k3.fused_dt_decode_plain(tokens, packed, nb, cfg.n_heads)
+    e, nb, nh = cfg.embed_dim, cfg.n_blocks, cfg.n_heads
+    w_bytes = 4.0 * sum(packed[k].numel() for k in k3.PACK_KEYS)
+
+    def chain(x):
+        b, t, _ = x.shape
+        for i in range(nb):
+            h = F.layer_norm(x, (e,), packed["ln1_s"][i], packed["ln1_b"][i],
+                             ln_eps)
+            q, k, v = F.linear(h, packed["qkv_w"][i].t(),
+                               packed["qkv_b"][i]).view(
+                                   b, t, 3, nh, e // nh).permute(2, 0, 3, 1, 4)
+            att = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            x = x + F.linear(att.transpose(1, 2).reshape(b, t, e),
+                             packed["o_w"][i].t(), packed["o_b"][i])
+            h = F.layer_norm(x, (e,), packed["ln2_s"][i], packed["ln2_b"][i],
+                             ln_eps)
+            h = F.gelu(F.linear(h, packed["fc_w"][i].t(), packed["fc_b"][i]))
+            x = F.linear(h, packed["proj_w"][i].t(), packed["proj_b"][i])
+        return F.layer_norm(x, (e,), packed["lnf_s"], packed["lnf_b"],
+                            ln_eps)
+
+    for b, t in itertools.product((1, EVAL_BATCH), (12, 18)):
+        tokens = torch.randn((b, t, e), generator=gen, device=dev)
+        got = k3.fused_dt_decode(tokens, packed, nb, nh)
+        ref = k3.fused_dt_decode_plain(tokens, packed, nb, nh)
+        chain_err = float((chain(tokens) - ref).abs().max())
+        if not chain_err <= TOLERANCE["dt_decode"]:
+            raise AssertionError(f"the library chain is {chain_err} off the "
+                                 f"plain version at B={b} T={t}")
         # Per block: 24 T E^2 for the four projections, 2 E T(T+1) for the
         # causal scores and the weighted values.
-        flops = EVAL_BATCH * nb * (24.0 * t * e * e + 2.0 * e * t * (t + 1))
-        record("dt_decode", f"B={EVAL_BATCH} T={t}", got, ref,
-               time_ms(torch, lambda: k3.fused_dt_decode(
-                   tokens, packed, nb, cfg.n_heads), 100),
-               time_ms(torch, lambda: k3.fused_dt_decode_plain(
-                   tokens, packed, nb, cfg.n_heads), 100),
-               None, flops, 8.0 * tokens.numel() + w_bytes)
+        flops = b * nb * (24.0 * t * e * e + 2.0 * e * t * (t + 1))
+        record("dt_decode", f"B={b} T={t}", got, ref,
+               time_graph_ms(torch, lambda: k3.fused_dt_decode(
+                   tokens, packed, nb, nh), launches=50),
+               time_graph_ms(torch, lambda: k3.fused_dt_decode_plain(
+                   tokens, packed, nb, nh), launches=20),
+               time_graph_ms(torch, lambda: chain(tokens), launches=20),
+               flops, 8.0 * tokens.numel() + w_bytes,
+               call_ms=time_ms(torch, lambda: k3.fused_dt_decode(
+                   tokens, packed, nb, nh), 100),
+               peak=H100_3XTF32_FLOPS, peak_name="3xTF32",
+               clusters_at_once=k3.clusters_at_once(e),
+               sequences_per_cluster=k3.sequences_per_cluster(
+                   b, t, k3.clusters_at_once(e)))
 
     # K4 on the per-op policy forward's heads: 16 trees (the search batch)
     # and 63 sequences, 18 tokens, 4 heads of 32.

@@ -40,7 +40,9 @@ import torch.nn.functional as F
 from ..config import ModelConfig
 from ..ops.kernels.attention import fused_causal_attention
 from ..ops.kernels.layernorm import layernorm, layernorm_plain
-from ..ops.kernels.transformer import fused_dt_decode, pack_dt_weights
+from ..ops.kernels.transformer import WIDTHS as DT_KERNEL_WIDTHS
+from ..ops.kernels.transformer import (fused_dt_decode, pack_dt_fragments,
+                                       pack_dt_weights)
 
 SIGMA_D_SCALE = 70.0 / 255.0
 
@@ -177,8 +179,9 @@ class DecisionTransformer(nn.Module):
         self._packed_key = None
 
     def packed_weights(self) -> Dict[str, torch.Tensor]:
-        """The block stack's weights in K3's layout, repacked only when a
-        parameter changed."""
+        """The block stack's weights in K3's layout (``PACK_KEYS``, and at
+        the kernel's widths its fragment order ``tc_w``), repacked only
+        when a parameter changed."""
         params = list(self.blocks.parameters()) \
             + list(self.layer_n.parameters())
         key = tuple((p.data_ptr(), p._version) for p in params)
@@ -187,6 +190,8 @@ class DecisionTransformer(nn.Module):
                 sd = {k: v for k, v in self.state_dict().items()
                       if k.startswith(("blocks.", "layer_n."))}
                 self._packed = pack_dt_weights(sd, self.cfg.n_blocks)
+                if self.cfg.embed_dim in DT_KERNEL_WIDTHS:
+                    self._packed["tc_w"] = pack_dt_fragments(self._packed)
             self._packed_key = key
         return self._packed
 

@@ -2,13 +2,18 @@
 launch (``csrc/dt_decode.cu``).
 
 Replaces the TPU kernel ``fused_dt_decode``
-(``dt4image_restoration_tpu/ops/pallas/transformer.py``). One thread block
-runs one sequence through every pre-LN block (causal attention with a
-residual; LN -> fc -> exact GELU -> proj, which replaces the stream, as the
-reference does) and the final LayerNorm, with all activations in shared
-memory and the ~3.9 MB of float32 weights read through L2. On the H100 the
-policy's batch (63 sequences of 12 or 18 tokens) is too small to fill the
-card, so the launch is latency bound; see the source for the details.
+(``dt4image_restoration_tpu/ops/pallas/transformer.py``). A cluster of four
+thread blocks runs a group of sequences through every pre-LN block (causal
+attention with a residual; LN -> fc -> exact GELU -> proj, which replaces
+the stream, as the reference does) and the final LayerNorm. Block r of a
+cluster computes attention head r and a quarter of the output features of
+every projection, on the tensor cores as 3xTF32 ``mma.sync`` products, and
+shares its slice with the other three through distributed shared memory.
+:func:`pack_dt_fragments` lays each block's quarter of the weights out in
+the order the kernel streams them. Each cluster takes
+:func:`sequences_per_cluster` sequences, enough that the batch fits one
+wave of the clusters the card runs at once (:func:`clusters_at_once`); see
+the source for the details.
 
 :func:`fused_dt_decode_plain` is the plain PyTorch version of the same
 stack on the same packed weights.
@@ -26,14 +31,22 @@ import torch.nn.functional as F
 from . import _build
 from .layernorm import layernorm_plain
 
-__all__ = ["PACK_KEYS", "fused_dt_decode", "fused_dt_decode_plain",
-           "pack_dt_weights"]
+__all__ = ["PACK_KEYS", "clusters_at_once", "fused_dt_decode",
+           "fused_dt_decode_plain", "pack_dt_fragments", "pack_dt_weights",
+           "sequences_per_cluster"]
 
 launches = 0  # kernel launches since the last reset
 
 MAX_TOKENS = 32
+CLUSTER = 4              # thread blocks per cluster, one per head
+WIDTHS = (64, 128)       # embedding widths the kernel is built for
+MAX_CLUSTER_TOKENS = 56  # S T per cluster: shared memory
+CLUSTER_DOES_NOT_FIT = -1  # dt_decode_launch's code for that refusal
 PACK_KEYS = ("ln1_s", "ln1_b", "qkv_w", "qkv_b", "o_w", "o_b", "ln2_s",
              "ln2_b", "fc_w", "fc_b", "proj_w", "proj_b", "lnf_s", "lnf_b")
+# The vectors the kernel reads as they are, in its argument order.
+_VECTOR_KEYS = ("ln1_s", "ln1_b", "qkv_b", "o_b", "ln2_s", "ln2_b", "fc_b",
+                "proj_b", "lnf_s", "lnf_b")
 
 
 def pack_dt_weights(state: Mapping[str, torch.Tensor], n_blocks: int
@@ -65,6 +78,48 @@ def pack_dt_weights(state: Mapping[str, torch.Tensor], n_blocks: int
     }
 
 
+def _a_fragments(w: torch.Tensor) -> torch.Tensor:
+    """(n_blocks, K, N) (in, out) weights -> (n_blocks, K N) in mma.sync A
+    fragment order: per k8 step and m16 tile of output features, lane
+    ``4g + t`` holds ``A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]`` of
+    ``A = w^T``."""
+    nb, k, n = w.shape
+    # (block, k step, k half, t, m tile, m half, g) -> (.., ks, mt, g, t,
+    # k half, m half)
+    x = w.reshape(nb, k // 8, 2, 4, n // 16, 2, 8).permute(0, 1, 4, 6, 3, 2, 5)
+    return x.reshape(nb, k * n)
+
+
+def _rank_columns(e: int, r: int) -> torch.Tensor:
+    """Block r's q, k and v columns of Wqkv: head r of each."""
+    q = e // CLUSTER
+    return torch.cat([torch.arange(i * e + r * q, i * e + (r + 1) * q)
+                      for i in range(3)])
+
+
+def pack_dt_fragments(packed: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The kernel's weights: (CLUSTER, n_blocks, 3 E^2) float32, unsplit.
+
+    For block r of a cluster and each DT block, in the order the kernel
+    streams them, the A fragments (:func:`_a_fragments`) of its quarter of
+    the four products: head r's q, k and v columns of ``qkv_w``, and the
+    r-th quarter of the output columns of ``o_w``, ``fc_w`` and ``proj_w``.
+    """
+    e = packed["qkv_w"].shape[1]
+    q = e // CLUSTER
+    with torch.no_grad():
+        ranks = []
+        for r in range(CLUSTER):
+            cols = _rank_columns(e, r).to(packed["qkv_w"].device)
+            ranks.append(torch.cat([
+                _a_fragments(packed["qkv_w"][:, :, cols]),
+                _a_fragments(packed["o_w"][:, :, r * q:(r + 1) * q]),
+                _a_fragments(packed["fc_w"][:, :, r * e:(r + 1) * e]),
+                _a_fragments(packed["proj_w"][:, :, r * q:(r + 1) * q]),
+            ], dim=1))
+        return torch.stack(ranks).contiguous()
+
+
 def fused_dt_decode_plain(tokens: torch.Tensor,
                           packed: Mapping[str, torch.Tensor],
                           n_blocks: int = 5, n_heads: int = 4
@@ -94,16 +149,41 @@ def fused_dt_decode_plain(tokens: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("dt_decode")
-    fn = lib.dt_decode_launch
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p] * (len(PACK_KEYS) + 1)
-    fn.restype = ctypes.c_int
-    return fn
+    lib.dt_decode_launch.argtypes = [ctypes.c_void_p] * 3 \
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p] * (len(_VECTOR_KEYS) + 1)
+    lib.dt_decode_launch.restype = ctypes.c_int
+    lib.dt_decode_clusters_at_once.argtypes = [ctypes.c_int]
+    lib.dt_decode_clusters_at_once.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def clusters_at_once(e: int) -> int:
+    """How many of the kernel's clusters the card runs at once at width E
+    (``cudaOccupancyMaxActiveClusters``); raises if not even one fits."""
+    n = _lib().dt_decode_clusters_at_once(e)
+    if n < 0:
+        _build.check(-n, "dt_decode occupancy")
+    if n == 0:
+        raise RuntimeError(f"dt_decode: a cluster of {CLUSTER} blocks with "
+                           "their shared memory does not fit on this card")
+    return n
+
+
+def sequences_per_cluster(b: int, t: int, clusters: int) -> int:
+    """S: enough sequences per cluster that B of them fit one wave of
+    ``clusters`` clusters, as long as S T tokens fit a cluster's shared
+    memory."""
+    return max(1, min(-(-b // clusters), MAX_CLUSTER_TOKENS // t))
 
 
 def fused_dt_decode(tokens: torch.Tensor, packed: Mapping[str, torch.Tensor],
                     n_blocks: int = 5, n_heads: int = 4) -> torch.Tensor:
-    """Run the full block stack + final LN on (B, T, E) float32 tokens."""
+    """Run the full block stack + final LN on (B, T, E) float32 tokens.
+
+    On the card the kernel reads ``packed["tc_w"]``
+    (:func:`pack_dt_fragments`, which ``DecisionTransformer.packed_weights``
+    keeps); where that key is missing it is packed for this call."""
     global launches
     if tokens.device.type == "cpu":
         return fused_dt_decode_plain(tokens, packed, n_blocks, n_heads)
@@ -112,10 +192,10 @@ def fused_dt_decode(tokens: torch.Tensor, packed: Mapping[str, torch.Tensor],
     if tokens.dtype != torch.float32 or tokens.ndim != 3:
         raise TypeError("tokens must be (B, T, E) float32")
     b, t, e = tokens.shape
-    if not 1 <= t <= MAX_TOKENS or e % 4 or e % n_heads:
-        raise ValueError(f"dt_decode kernel takes 1 <= T <= {MAX_TOKENS} and "
-                         f"E divisible by 4 and by n_heads; got T={t}, E={e}, "
-                         f"n_heads={n_heads}")
+    if not 1 <= t <= MAX_TOKENS or e not in WIDTHS or n_heads != CLUSTER:
+        raise ValueError(f"dt_decode kernel takes 1 <= T <= {MAX_TOKENS}, "
+                         f"E in {WIDTHS} and n_heads={CLUSTER}; got T={t}, "
+                         f"E={e}, n_heads={n_heads}")
     if not tokens.is_contiguous():
         raise ValueError("tokens must be contiguous")
     shapes = {"ln1_s": (n_blocks, e), "ln1_b": (n_blocks, e),
@@ -124,9 +204,13 @@ def fused_dt_decode(tokens: torch.Tensor, packed: Mapping[str, torch.Tensor],
               "ln2_s": (n_blocks, e), "ln2_b": (n_blocks, e),
               "fc_w": (n_blocks, e, 4 * e), "fc_b": (n_blocks, 4 * e),
               "proj_w": (n_blocks, 4 * e, e), "proj_b": (n_blocks, e),
-              "lnf_s": (e,), "lnf_b": (e,)}
-    for k in PACK_KEYS:
-        w = packed[k]
+              "lnf_s": (e,), "lnf_b": (e,),
+              "tc_w": (CLUSTER, n_blocks, 3 * e * e)}
+    arrays = dict(packed)
+    if "tc_w" not in arrays:
+        arrays["tc_w"] = pack_dt_fragments(packed)
+    for k in PACK_KEYS + ("tc_w",):
+        w = arrays[k]
         if tuple(w.shape) != shapes[k] or w.dtype != torch.float32 \
                 or w.device != tokens.device or not w.is_contiguous():
             raise ValueError(
@@ -136,11 +220,16 @@ def fused_dt_decode(tokens: torch.Tensor, packed: Mapping[str, torch.Tensor],
     out = torch.empty_like(tokens)
     if b == 0:
         return out
-    fn = _lib()
     with torch.cuda.device(tokens.device):
-        rc = fn(tokens.data_ptr(), out.data_ptr(), b, t, e, n_heads, n_blocks,
-                *(packed[k].data_ptr() for k in PACK_KEYS),
-                _build.stream_handle(tokens.device))
+        s = sequences_per_cluster(b, t, clusters_at_once(e))
+        rc = _lib().dt_decode_launch(
+            tokens.data_ptr(), out.data_ptr(), arrays["tc_w"].data_ptr(), b,
+            t, e, n_heads, s, n_blocks,
+            *(arrays[k].data_ptr() for k in _VECTOR_KEYS),
+            _build.stream_handle(tokens.device))
+    if rc == CLUSTER_DOES_NOT_FIT:
+        raise RuntimeError(f"dt_decode: a cluster of {CLUSTER} blocks with "
+                           "their shared memory does not fit on this card")
     _build.check(rc, "dt_decode")
     launches += 1
     return out

@@ -97,6 +97,59 @@ def test_dt_decode_kernel_matches_plain(dev, t):
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
 
+def _dt128(dev):
+    """The published DT's pack (E 128, 4 heads, 5 blocks) on the card."""
+    cfg = ModelConfig()
+    dt = DecisionTransformer(cfg).eval().requires_grad_(False)
+    dt.load_state_dict(init_dt_params(cfg, seed=0))
+    return dt.to(dev).packed_weights()
+
+
+@pytest.mark.parametrize("b", [1, 2, 61, 63])
+@pytest.mark.parametrize("t", [1, 7, 12, 18, 32])
+def test_dt_decode_kernel_at_policy_shapes(dev, b, t):
+    """The cluster kernel at the published width, max abs error <= 1e-4;
+    B=61 leaves the last cluster ragged where S > 1, T=32 takes a cluster
+    alone."""
+    packed = _dt128(dev)
+    tokens = _f32(np.random.default_rng(7), (b, t, 128)).to(dev)
+    before = k3.launches
+    got = k3.fused_dt_decode(tokens, packed, 5, 4)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    ref = k3.fused_dt_decode_plain(tokens, packed, 5, 4)
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+def test_dt_decode_kernel_narrow_width(dev):
+    """E=64 (4 heads of 16) on a pack without the fragment key: the
+    wrapper packs it for the call."""
+    cfg = ModelConfig(embed_dim=64, n_heads=4, n_blocks=2)
+    dt = DecisionTransformer(cfg).eval().requires_grad_(False)
+    dt.load_state_dict(init_dt_params(cfg, seed=3))
+    packed = {k: v for k, v in dt.to(dev).packed_weights().items()
+              if k in k3.PACK_KEYS}
+    tokens = _f32(np.random.default_rng(8), (37, 18, 64)).to(dev)
+    got = k3.fused_dt_decode(tokens, packed, cfg.n_blocks, cfg.n_heads)
+    ref = k3.fused_dt_decode_plain(tokens, packed, cfg.n_blocks, cfg.n_heads)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+def test_dt_decode_kernel_refuses_unsupported_width(dev):
+    cfg = ModelConfig(embed_dim=96, n_heads=4, n_blocks=1)
+    dt = DecisionTransformer(cfg).eval().requires_grad_(False)
+    dt.load_state_dict(init_dt_params(cfg, seed=0))
+    packed = dt.to(dev).packed_weights()
+    assert "tc_w" not in packed
+    tokens = torch.zeros((2, 12, 96), device=dev)
+    with pytest.raises(ValueError, match=r"E in \(64, 128\)"):
+        k3.fused_dt_decode(tokens, packed, 1, 4)
+    with pytest.raises(ValueError, match="n_heads=4"):
+        k3.fused_dt_decode(torch.zeros((2, 12, 128), device=dev),
+                           _dt128(dev), 5, 8)
+
+
 def test_unet_on_card_matches_cpu(dev):
     model = UNetDenoiser().eval().requires_grad_(False)
     model.load_state_dict(random_unet_state_dict(0))

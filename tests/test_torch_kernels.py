@@ -30,7 +30,9 @@ from dt4image_restoration_tpu_torch.ops.kernels import conv_block as k1
 from dt4image_restoration_tpu_torch.ops.kernels import layernorm as k5
 from dt4image_restoration_tpu_torch.ops.kernels import kspace as k2
 from dt4image_restoration_tpu_torch.ops.kernels import transformer as k3
-from dt4image_restoration_tpu_torch.models import (UNetDenoiser,
+from dt4image_restoration_tpu_torch.models import (DecisionTransformer,
+                                                   UNetDenoiser,
+                                                   init_dt_params,
                                                    random_unet_state_dict)
 from dt4image_restoration_tpu_torch.utils.convert import dt_from_jax
 from torch_port_common import one_torch_thread  # noqa: F401
@@ -234,6 +236,112 @@ def test_pack_dt_weights_matches_jax(dt_params):
     assert set(ours) == set(k3.PACK_KEYS) == set(theirs)
     for k in k3.PACK_KEYS:
         np.testing.assert_array_equal(ours[k].numpy(), np.asarray(theirs[k]))
+
+
+def _dt_packed(e, n_blocks, seed=0):
+    cfg = ModelConfig(embed_dim=e, n_heads=4, n_blocks=n_blocks)
+    dt = DecisionTransformer(cfg)
+    dt.load_state_dict(init_dt_params(cfg, seed))
+    return dt.packed_weights()
+
+
+def _a_unswizzle(frags, k, n):
+    """(n_blocks, K N) A fragments -> (n_blocks, K, N) (in, out) weights:
+    the inverse of the kernel's [k step][m tile][g][t][k half][m half]
+    order."""
+    x = frags.reshape(-1, k // 8, n // 16, 8, 4, 2, 2)
+    return x.permute(0, 1, 5, 4, 2, 6, 3).reshape(-1, k, n)
+
+
+@pytest.mark.parametrize("e", [64, 128])
+def test_dt_fragments_unswizzle_to_pack_weights(e):
+    """Block r's stream of the fragment pack gives back head r's q, k, v
+    columns of qkv_w and the r-th quarter of o_w, fc_w and proj_w, exactly,
+    in the kernel's product order; the four quarters tile each matrix."""
+    nb = 2
+    packed = _dt_packed(e, nb)
+    tc = packed["tc_w"]
+    assert tc.shape == (4, nb, 3 * e * e) and tc.is_contiguous()
+    q = e // 4
+    got = {"qkv_w": torch.empty_like(packed["qkv_w"]),
+           "o_w": torch.empty_like(packed["o_w"]),
+           "fc_w": torch.empty_like(packed["fc_w"]),
+           "proj_w": torch.empty_like(packed["proj_w"])}
+    for r in range(4):
+        segs = tc[r].split([e * 3 * q, e * q, e * e, 4 * e * q], dim=1)
+        qkv = _a_unswizzle(segs[0], e, 3 * q)
+        for i in range(3):
+            got["qkv_w"][:, :, i * e + r * q:i * e + (r + 1) * q] = \
+                qkv[:, :, i * q:(i + 1) * q]
+        got["o_w"][:, :, r * q:(r + 1) * q] = _a_unswizzle(segs[1], e, q)
+        got["fc_w"][:, :, r * e:(r + 1) * e] = _a_unswizzle(segs[2], e, e)
+        got["proj_w"][:, :, r * q:(r + 1) * q] = _a_unswizzle(segs[3], 4 * e,
+                                                              q)
+    for k, w in got.items():
+        assert torch.equal(w, packed[k]), k
+    assert set(k3.PACK_KEYS) < set(packed)
+
+
+def _tf32_dt_decode(tokens, packed, n_blocks, n_heads, products):
+    """fused_dt_decode_plain with every projection taken as TF32 products
+    summed in float32, as the kernel has the tensor cores do it: 1 product
+    (hi hi) or 3 (lo hi + hi lo + hi hi), both operands split as split()
+    does: hi = tf32(v), lo = v - hi truncated to TF32."""
+    r = k1.tf32_round
+
+    def lo(v):
+        return ((v - r(v)).view(torch.int32) & -0x2000).view(torch.float32)
+
+    def matmul(x, w):
+        y = r(x) @ r(w)
+        if products == 3:
+            y = lo(x) @ r(w) + r(x) @ lo(w) + y
+        return y
+
+    x = tokens
+    b, t, e = x.shape
+    d = e // n_heads
+    causal = torch.ones(t, t, dtype=torch.bool).tril()
+    for i in range(n_blocks):
+        h = k5.layernorm_plain(x, packed["ln1_s"][i], packed["ln1_b"][i])
+        qkv = matmul(h, packed["qkv_w"][i]) + packed["qkv_b"][i]
+        q, k, v = (a.reshape(b, t, n_heads, d).transpose(1, 2)
+                   for a in qkv.split(e, dim=-1))
+        s = (q @ k.transpose(-1, -2)) * (1.0 / np.sqrt(d))
+        p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
+        att = (p @ v).transpose(1, 2).reshape(b, t, e)
+        x = x + matmul(att, packed["o_w"][i]) + packed["o_b"][i]
+        h = k5.layernorm_plain(x, packed["ln2_s"][i], packed["ln2_b"][i])
+        h = F.gelu(matmul(h, packed["fc_w"][i]) + packed["fc_b"][i])
+        x = matmul(h, packed["proj_w"][i]) + packed["proj_b"][i]
+    return k5.layernorm_plain(x, packed["lnf_s"], packed["lnf_b"])
+
+
+def test_three_tf32_products_keep_dt_decode_float32_accurate():
+    """Why K3 takes three products: over the published stack (E 128, 5
+    blocks) 3xTF32 stays within 1e-5 of the float32 plain version, while
+    one TF32 product misses the kernel's 1e-4 tolerance."""
+    cfg = ModelConfig()
+    packed = _dt_packed(cfg.embed_dim, cfg.n_blocks)
+    tokens = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (4, 18, cfg.embed_dim)).astype(np.float32))
+    ref = k3.fused_dt_decode_plain(tokens, packed, cfg.n_blocks, cfg.n_heads)
+    err3 = float((_tf32_dt_decode(tokens, packed, cfg.n_blocks, cfg.n_heads,
+                                  3) - ref).abs().max())
+    err1 = float((_tf32_dt_decode(tokens, packed, cfg.n_blocks, cfg.n_heads,
+                                  1) - ref).abs().max())
+    assert err3 <= 1e-5
+    assert err1 > 1e-4
+
+
+@pytest.mark.parametrize("b,t,clusters,s", [
+    (1, 12, 30, 1), (63, 12, 30, 3), (63, 18, 30, 3), (63, 12, 32, 2),
+    (64, 32, 30, 1), (200, 12, 30, 4), (2, 1, 30, 1), (1000, 7, 30, 8)])
+def test_dt_decode_sequences_per_cluster(b, t, clusters, s):
+    """S fits B sequences into one wave of the clusters that the card runs
+    at once, where a cluster's 56 tokens allow."""
+    assert k3.sequences_per_cluster(b, t, clusters) == s
+    assert s * t <= k3.MAX_CLUSTER_TOKENS
 
 
 # --- K4 -----------------------------------------------------------------
