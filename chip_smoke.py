@@ -16,16 +16,21 @@ prints one JSON line per phase. The paths:
     of 9 synthetic eval directories, with the fused policy forward (K1, K2,
     K3);
   * mcts: the PUCB tree search of 16 of those slices, 30 rounds each, with
-    the per-op policy forward (K1, K2, K4, K5) and the proxy scorer; then
+    the per-op policy forward (K1, K2, K4, K5) and the proxy scorer, then
+    one tree on the card and on the CPU at --block_size 18 and 36; then
     ARNIQA scores of 16 slices on the card and on the CPU.
 
 K1 is timed at the batches of these paths (1, 16, 63 and 96 slices), K3
 at one slice and at 63, both bounded by the 3xTF32 tensor-core rate; K3 is
 also held against a chain of PyTorch's own calls for the same stack
 (``F.layer_norm``, ``F.linear``, ``F.scaled_dot_product_attention``,
-``F.gelu``), timed from a CUDA graph. The run fails if the build of K1 or
-K3 spills registers. Launches are counted per path, from zero just before
-it to just after it.
+``F.gelu``), timed from a CUDA graph. K4 is timed on the strided q, k, v
+views the per-op forward hands it, at 18 tokens and at 90
+(--block_size 90). The per_op_forward phase times one per-op policy forward
+at the search's shape eagerly and from a CUDA graph and counts the kernels
+it runs with ``torch.profiler``. The run fails if the
+build of K1 or K3 spills registers. Launches are counted per path, from
+zero just before it to just after it.
 The line before the last is the kernel summary; the last line is the device
 summary. Any failure ends the run with a traceback and a non-zero exit
 code.
@@ -146,6 +151,14 @@ def time_graph_ms(torch, fn, launches: int = 100, replays: int = 10
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (replays * launches)
+
+
+def qkv_views(qkv, h):
+    """q, k, v as the per-op forward cuts them from its (B, T, 3E)
+    projection: (B, H, T, D) views with a last stride of 1."""
+    b, t, e3 = qkv.shape
+    return tuple(a.reshape(b, t, h, e3 // (3 * h)).transpose(1, 2)
+                 for a in qkv.split(e3 // 3, dim=-1))
 
 
 def max_errors(got, ref):
@@ -346,26 +359,27 @@ def phase_kernels(torch, dev):
                sequences_per_cluster=k3.sequences_per_cluster(
                    b, t, k3.clusters_at_once(e)))
 
-    # K4 on the per-op policy forward's heads: 16 trees (the search batch)
-    # and 63 sequences, 18 tokens, 4 heads of 32.
-    for b in (SEARCH_BATCH, EVAL_BATCH):
-        shape = (b, cfg.n_heads, 18, e // cfg.n_heads)
-        q, k, v = (torch.randn(shape, generator=gen, device=dev)
-                   for _ in range(3))
+    # K4 on the per-op policy forward's heads, on the views it hands the
+    # kernel: q, k and v cut from one (B, T, 3E) projection. 16 trees (the
+    # search batch) and 63 sequences at 18 tokens, and 16 at 90 tokens
+    # (--block_size 90); 4 heads of 32. SDPA runs on the same views.
+    for b, t in ((SEARCH_BATCH, 18), (EVAL_BATCH, 18), (SEARCH_BATCH, 90)):
+        h, d = cfg.n_heads, e // cfg.n_heads
+        qkv = torch.randn((b, t, 3 * e), generator=gen, device=dev)
+        q, k, v = qkv_views(qkv, h)
         got = k4.fused_causal_attention(q, k, v)
         ref = k4.fused_causal_attention_plain(q, k, v)
-        t, d = shape[2], shape[3]
         # QK^T and PV over the causal half: 2 D T (T+1) per (b, h) pair.
-        record("attention", f"B={b} H={shape[1]} T={t} D={d}", got, ref,
+        record("attention", f"B={b} H={h} T={t} D={d}", got, ref,
                time_graph_ms(torch, lambda: k4.fused_causal_attention(
                    q, k, v)),
                time_graph_ms(torch, lambda: k4.fused_causal_attention_plain(
                    q, k, v)),
                time_graph_ms(torch, lambda: F.scaled_dot_product_attention(
                    q, k, v, is_causal=True)),
-               2.0 * b * shape[1] * d * t * (t + 1), 16.0 * q.numel(),
+               2.0 * b * h * d * t * (t + 1), 16.0 * b * h * t * d,
                call_ms=time_ms(torch, lambda: k4.fused_causal_attention(
-                   q, k, v), 200))
+                   q, k, v), 200), layout="qkv views")
 
     # K5 on the per-op forward's LayerNorms: B x 18 rows of 128; about 8
     # flops per value (sum, centre, square, sum, scale, shift).
@@ -385,6 +399,16 @@ def phase_kernels(torch, dev):
                call_ms=time_ms(torch, lambda: k5.layernorm(x, scale, bias),
                                200))
     return rows
+
+
+def phase_per_op_forward(torch, dev):
+    """One per-op policy forward (``use_pallas``: K4 and K5) at the
+    search's shape: device ms from a CUDA graph, eager ms and the kernels
+    it runs (``dt4image_restoration_tpu_torch/perf/per_op_forward.py``)."""
+    from dt4image_restoration_tpu_torch.perf import per_op_forward
+    out = per_op_forward.measure(torch, dev)
+    emit(out)
+    return out
 
 
 def phase_rollout(torch, dev, ckpt_dir):
@@ -520,14 +544,15 @@ def search_records(dirs):
     return records[:SEARCH_BATCH], seeds[:SEARCH_BATCH]
 
 
-def _search(torch, device, ckpt_dir, mcts_cfg, record_trace=False):
+def _search(torch, device, ckpt_dir, mcts_cfg, record_trace=False,
+            block_size=18):
     """The CLI's search (``mcts`` verb) on random weights: the per-op
     policy with K4 and K5, the proxy scorer."""
     from dt4image_restoration_tpu_torch.config import ModelConfig
     from dt4image_restoration_tpu_torch.inference import BatchedMCTS
     from dt4image_restoration_tpu_torch.models import proxy_value_fn
     from dt4image_restoration_tpu_torch.utils.loaders import load_denoiser
-    cfg = ModelConfig(block_size=18, n_embeds=9, mode="norm",
+    cfg = ModelConfig(block_size=block_size, n_embeds=9, mode="norm",
                       use_pallas=True)
     return BatchedMCTS(
         dt=_load_policy(cfg, ckpt_dir, device),
@@ -537,11 +562,38 @@ def _search(torch, device, ckpt_dir, mcts_cfg, record_trace=False):
         record_trace=record_trace, device=device)
 
 
+def search_check(torch, dev, ckpt_dir, record, seed, iterations,
+                 block_size, printed):
+    """One tree searched for ``iterations`` rounds on the card and on the
+    CPU: the traces (iteration, depth, edge, index), the largest relative
+    difference of the priors, and the rewards."""
+    from dt4image_restoration_tpu_torch.config import MCTSConfig
+    runs = []
+    for device in (dev, "cpu"):
+        m = _search(torch, device, ckpt_dir,
+                    MCTSConfig(iterations=iterations), record_trace=True,
+                    block_size=block_size)
+        with contextlib.redirect_stdout(printed):
+            runs.append((m.run(record, seed=seed), m.traces[0]))
+    (r_gpu, t_gpu), (r_cpu, t_cpu) = runs
+    key = ("iter", "time", "edge", "index")
+    trace = [[e[k] for k in key] for e in t_gpu]
+    return {"block_size": block_size, "iterations": iterations,
+            "trace": trace,
+            "same_trace": trace == [[e[k] for k in key] for e in t_cpu],
+            "prior_max_rel_diff": max(
+                abs(a - b) / abs(b) for x, y in zip(t_gpu, t_cpu)
+                for a, b in zip(x["probs"], y["probs"])),
+            "reward_gpu_db": r_gpu, "reward_cpu_db": r_cpu,
+            "reward_diff_db": abs(r_gpu - r_cpu)}
+
+
 def phase_mcts(torch, dev, ckpt_dir, dirs, kernels):
     """The tree search of 16 slices (one --search_batch chunk) with the
     default MCTSConfig (30 rounds, 5 children, 30 timesteps), launches
-    counted over it alone; then one tree for 3 rounds on the card and on
-    the CPU."""
+    counted over it alone; then one tree on the card and on the CPU, for 3
+    rounds at --block_size 18 and for 2 at --block_size 36 (36-token
+    windows, past the fused kernel K3's 32)."""
     from dt4image_restoration_tpu_torch.config import MCTSConfig
     records, seeds = search_records(dirs)
     mcts_cfg = MCTSConfig()
@@ -556,18 +608,10 @@ def phase_mcts(torch, dev, ckpt_dir, dirs, kernels):
     wall = time.perf_counter() - t0
     counts = kernels.launch_counts()
 
-    check_cfg = MCTSConfig(iterations=3)
-    runs = []
-    for device in (dev, "cpu"):
-        m = _search(torch, device, ckpt_dir, check_cfg, record_trace=True)
-        with contextlib.redirect_stdout(printed):
-            runs.append((m.run(records[0], seed=seeds[0]), m.traces[0]))
-    (r_gpu, t_gpu), (r_cpu, t_cpu) = runs
-    key = ("iter", "time", "edge", "index")
-    same_trace = [[e[k] for k in key] for e in t_gpu] \
-        == [[e[k] for k in key] for e in t_cpu]
-    prior_rel = max(abs(a - b) / abs(b) for x, y in zip(t_gpu, t_cpu)
-                    for a, b in zip(x["probs"], y["probs"]))
+    checks = [search_check(torch, dev, ckpt_dir, records[0], seeds[0], 3,
+                           18, printed),
+              search_check(torch, dev, ckpt_dir, records[0], seeds[0], 2,
+                           36, printed)]
     out = {"phase": "mcts", "trees": len(records),
            "iterations": mcts_cfg.iterations,
            "n_children": mcts_cfg.n_children,
@@ -575,20 +619,17 @@ def phase_mcts(torch, dev, ckpt_dir, dirs, kernels):
            "tree_iterations_per_s": len(records) * mcts_cfg.iterations
            / wall,
            "mean_best_psnr_db": sum(rewards) / len(rewards),
-           "launches": counts,
-           "check_iterations": check_cfg.iterations,
-           "check_trace": [[e[k] for k in key] for e in t_gpu],
-           "check_same_trace": same_trace,
-           "check_prior_max_rel_diff": prior_rel,
-           "check_reward_gpu_db": r_gpu, "check_reward_cpu_db": r_cpu,
-           "check_reward_diff_db": abs(r_gpu - r_cpu)}
+           "launches": counts, "checks": checks}
     emit(out)
     if len(rewards) != SEARCH_BATCH \
             or not all(map(math.isfinite, rewards)):
         raise AssertionError(f"search returned {rewards}")
-    if not same_trace or prior_rel > 1e-4 \
-            or out["check_reward_diff_db"] > 0.05:
-        raise AssertionError("the search on the card disagrees with the CPU")
+    for c in checks:
+        if not c["same_trace"] or c["prior_max_rel_diff"] > 1e-4 \
+                or c["reward_diff_db"] > 0.05:
+            raise AssertionError(f"the search on the card disagrees with "
+                                 f"the CPU at --block_size "
+                                 f"{c['block_size']}")
     return counts
 
 
@@ -652,6 +693,7 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_device(torch, _build)
     rows = phase_kernels(torch, dev)
+    phase_per_op_forward(torch, dev)
 
     paths = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:

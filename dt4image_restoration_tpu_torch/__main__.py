@@ -11,9 +11,12 @@ search.
 Flags follow the JAX package's ``main.py`` for these modes; ``--device``
 (default ``cuda``) picks the device, and ``cpu`` must be asked for. A missing
 checkpoint is replaced by random weights with a warning. ``eval`` and
-``flex`` run the fused policy forward (kernel K3); ``mcts`` runs the per-op
-forward with kernels K4 and K5 and scores leaves with ARNIQA when
-``--arniqa_ckpt`` names a hub checkpoint, else with the proxy scorer.
+``flex`` run the fused policy forward (kernel K3) where K3 takes the
+config (``--block_size`` up to 32 at the published widths) and the per-op
+forward with kernels K4 and K5 above that, and say which on stderr;
+``mcts`` runs the per-op forward with K4 and K5 and scores leaves with
+ARNIQA when ``--arniqa_ckpt`` names a hub checkpoint, else with the proxy
+scorer. K4 takes every ``--block_size`` that ``max_timestep`` 30 allows.
 """
 from __future__ import annotations
 
@@ -99,11 +102,24 @@ def _default_dirs(args, base_dirs):
 def _evaluate(args) -> None:
     from .config import ModelConfig
     from .inference import Evaluator
+    from .models import fused_forward_takes
+    from .ops.kernels import transformer as k3
     from .utils.loaders import load_denoiser, load_dt
 
     mode = "flex" if args.mode == "flex" else "norm"
+    # The per-op forward, where the Evaluator picks it, with kernels K4
+    # (attention) and K5 (LayerNorm); the fused forward ignores the flag.
     cfg = ModelConfig(block_size=args.block_size, n_embeds=args.n_embeds,
-                      mode=mode)
+                      mode=mode, use_pallas=True)
+    # The Evaluator chooses the forward from the config; say which.
+    if fused_forward_takes(cfg):
+        print("policy forward: fused (kernel K3)", file=sys.stderr)
+    else:
+        print(f"policy forward: per-op (kernels K4, K5); K3 takes up to "
+              f"{k3.MAX_TOKENS} tokens at embed_dim {k3.WIDTHS} with "
+              f"{k3.CLUSTER} heads, this config has "
+              f"{3 * cfg.context_length} tokens at embed_dim "
+              f"{cfg.embed_dim} with {cfg.n_heads} heads", file=sys.stderr)
     dirs = _existing_dirs(_default_dirs(
         args, EVAL_DIRS_6 if args.mode == "flex" else EVAL_DIRS_9))
     targets = FLEX_RTGS if args.mode == "flex" else [float(args.rtg)]

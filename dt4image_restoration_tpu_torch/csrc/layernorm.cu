@@ -11,9 +11,17 @@
 // A warp loads its row once into registers as float4 (E / 4 vectors spread
 // over the 32 lanes, at most MAX_VEC per lane), takes the sum and the
 // centred sum of squares with butterfly shuffles, and writes the affine
-// result as float4. The last block of rows may be partial; every row index
-// is checked, so any row count works. The variance is never taken as
-// E[x^2] - E[x]^2, which cancels badly when |mean| >> std.
+// result as float4. The variance is never taken as E[x^2] - E[x]^2, which
+// cancels badly when |mean| >> std.
+//
+// Grid. A block takes `rows / SMs` rows (1 to MAX_ROWS), so that a call
+// of at least as many rows as the card has SMs spreads over all of them:
+// the search's 288 rows run as 144 blocks of 2 warps, the evaluation's
+// 1,134 as 142 blocks of 8. The last block may be partial; every row index
+// is checked, so any row count works.
+//
+// Launch: a plain launch. With programmatic dependent launch the per-op
+// forward's CUDA graph ran no faster on the H100 (PERF.md section 6).
 //
 // Bound on the H100: memory traffic. A row moves 8 E bytes for about 8 E
 // flops; the design reads and writes each value once, with 16-byte
@@ -21,8 +29,9 @@
 // call moves 0.3 MB, so in practice the launch latency bounds it.
 #include <cuda_runtime.h>
 
-#define ROWS_PER_BLOCK 8
+#define MAX_ROWS 8   // rows (warps) of a block, at most
 #define MAX_VEC 8  // float4 vectors per lane: E <= 32 * 4 * MAX_VEC = 1024
+#define MAX_DEVICES 64             // devices with launch state kept
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -30,13 +39,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void __launch_bounds__(ROWS_PER_BLOCK * 32)
+__global__ void __launch_bounds__(MAX_ROWS * 32)
 layernorm_kernel(const float4* __restrict__ x,
                  const float4* __restrict__ scale,
                  const float4* __restrict__ bias, float4* __restrict__ out,
                  long long rows, int E, float eps) {
   const int lane = threadIdx.x % 32;
-  const long long row = (long long)blockIdx.x * ROWS_PER_BLOCK
+  const long long row = (long long)blockIdx.x * (blockDim.x / 32)
       + threadIdx.x / 32;
   if (row >= rows) return;
   const int nvec = E / 4;
@@ -83,12 +92,25 @@ layernorm_kernel(const float4* __restrict__ x,
 extern "C" int layernorm_launch(const void* x, const void* scale,
                                 const void* bias, void* out, long long rows,
                                 int E, float eps, void* stream) {
+  static int sms[MAX_DEVICES] = {};   // SM count of each device, once read
   if (rows <= 0) return 0;
   if (E < 4 || E % 4 || E > 32 * 4 * MAX_VEC)
     return (int)cudaErrorInvalidValue;
-  const long long blocks = (rows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  layernorm_kernel<<<(unsigned)blocks, ROWS_PER_BLOCK * 32, 0,
-                     (cudaStream_t)stream>>>(
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    int n = 0;
+    e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    sms[dev] = n;
+  }
+  const long long per_sm = rows / sms[dev];
+  const int per_block = per_sm < 1 ? 1 : per_sm > MAX_ROWS ? MAX_ROWS
+                                                          : (int)per_sm;
+  layernorm_kernel<<<(unsigned)((rows + per_block - 1) / per_block),
+                     per_block * 32, 0, (cudaStream_t)stream>>>(
       (const float4*)x, (const float4*)scale, (const float4*)bias,
       (float4*)out, rows, E, eps);
   return (int)cudaGetLastError();

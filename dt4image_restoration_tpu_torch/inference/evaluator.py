@@ -28,6 +28,8 @@ from ..data.datasets import EvaluationDataset
 from ..env.pnp import CSMRIState, admm_step, compute_reward, get_policy_ob, \
     reset_from_mat
 from ..models.decision_transformer import (DecisionTransformer,
+                                           fused_forward_takes,
+                                           make_dt_apply,
                                            make_dt_embed_apply,
                                            make_fused_dt_apply,
                                            make_state_encode)
@@ -263,9 +265,12 @@ class Evaluator:
     of each, with all images of all directories in one batched rollout.
 
     ``dt_apply`` is the forward the policy runs, with the signature of
-    :func:`..models.decision_transformer.make_dt_apply`; by default the
-    fused forward of ``dt`` (kernel K3). ``dt`` itself supplies the state
-    encoder of the embedding cache."""
+    :func:`..models.decision_transformer.make_dt_apply`. By default it is
+    the fused forward of ``dt`` (kernel K3) where K3 takes ``cfg``
+    (:func:`..models.decision_transformer.fused_forward_takes`), else the
+    per-op forward, which on the card must run kernels K4 and K5: a ``dt``
+    built without ``use_pallas`` is then refused with a ``ValueError``.
+    ``dt`` itself supplies the state encoder of the embedding cache."""
     dt: DecisionTransformer
     denoise: Callable
     cfg: ModelConfig
@@ -282,6 +287,16 @@ class Evaluator:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+        if self.dt_apply is None and self.device.type == "cuda" \
+                and not fused_forward_takes(self.cfg) \
+                and not self.dt.cfg.use_pallas:
+            raise ValueError(
+                f"kernel K3 does not take {3 * self.cfg.context_length} "
+                f"tokens at embed_dim {self.cfg.embed_dim} with "
+                f"{self.cfg.n_heads} heads, and the per-op forward runs its "
+                "kernels K4 and K5 on the card only with "
+                "ModelConfig(use_pallas=True); build the DecisionTransformer "
+                "with it")
 
     @torch.no_grad()
     def evaluate_records(self, records: Sequence[Tuple[Any, Any]]
@@ -304,7 +319,9 @@ class Evaluator:
         env_state = reset_from_mat(mats, device=dev)
         old_reward = compute_reward(env_state)
 
-        dt_apply = self.dt_apply or make_fused_dt_apply(self.dt)
+        dt_apply = self.dt_apply or (
+            make_fused_dt_apply(self.dt) if fused_forward_takes(self.cfg)
+            else make_dt_apply(self.dt))
         encode = dt_embed_apply = None
         if self.cached_encoder:
             encode = make_state_encode(self.dt)

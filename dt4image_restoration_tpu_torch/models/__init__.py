@@ -2,14 +2,15 @@ from .arniqa import (ARNIQA, ResNet50, make_value_fn, proxy_value_fn,
                      random_arniqa_state_dict, score_images)
 from .decision_transformer import (Attention, Block, DecisionTransformer,
                                    DTOutput, LayerNorm, StateEncoder,
-                                   init_dt_params, make_dt_apply,
+                                   fused_forward_takes, init_dt_params,
+                                   make_dt_apply,
                                    make_dt_embed_apply, make_fused_dt_apply,
                                    make_state_encode, transform_actions)
 from .unet import ConvBlock, UNet, UNetDenoiser, random_unet_state_dict
 
 __all__ = ["ARNIQA", "Attention", "Block", "ConvBlock", "DTOutput",
            "DecisionTransformer", "LayerNorm", "ResNet50", "StateEncoder",
-           "UNet", "UNetDenoiser", "init_dt_params",
+           "UNet", "UNetDenoiser", "fused_forward_takes", "init_dt_params",
            "make_dt_apply", "make_dt_embed_apply", "make_fused_dt_apply",
            "make_state_encode", "make_value_fn", "proxy_value_fn",
            "random_arniqa_state_dict", "random_unet_state_dict",

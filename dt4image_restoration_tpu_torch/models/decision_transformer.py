@@ -40,6 +40,8 @@ import torch.nn.functional as F
 from ..config import ModelConfig
 from ..ops.kernels.attention import fused_causal_attention
 from ..ops.kernels.layernorm import layernorm, layernorm_plain
+from ..ops.kernels.transformer import CLUSTER as DT_KERNEL_HEADS
+from ..ops.kernels.transformer import MAX_TOKENS as DT_KERNEL_MAX_TOKENS
 from ..ops.kernels.transformer import WIDTHS as DT_KERNEL_WIDTHS
 from ..ops.kernels.transformer import (fused_dt_decode, pack_dt_fragments,
                                        pack_dt_weights)
@@ -126,11 +128,13 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, e = x.shape
         h = self.n_heads
+        # Views of the (B, T, 3E) projection; K4 reads them as they are and
+        # returns the (B, H, T, D) view of a (B, T, H, D) buffer, so the
+        # merge of the heads below is a view too.
         q, k, v = (a.reshape(b, t, h, e // h).transpose(1, 2)
                    for a in self.qkv_proj(x).split(e, dim=-1))
         if self.use_pallas and not self.training:
-            y = fused_causal_attention(q.contiguous(), k.contiguous(),
-                                       v.contiguous())
+            y = fused_causal_attention(q, k, v)
         else:
             att = (q @ k.transpose(-1, -2)) / math.sqrt(e // h)
             causal = torch.ones(t, t, dtype=torch.bool,
@@ -270,6 +274,16 @@ def make_dt_embed_apply(dt_apply: Callable) -> Callable:
         return dt_apply(rtg, None, timesteps, task, actions,
                         state_embeddings=state_embs)
     return apply_embed
+
+
+def fused_forward_takes(cfg: ModelConfig) -> bool:
+    """Whether kernel K3, and so :func:`make_fused_dt_apply`, takes ``cfg``
+    on the card: its three-token windows (``3 * context_length`` tokens)
+    within K3's ``MAX_TOKENS``, a width in its ``WIDTHS`` and 4 heads. The
+    evaluator runs the per-op forward where it does not."""
+    return (3 * cfg.context_length <= DT_KERNEL_MAX_TOKENS
+            and cfg.embed_dim in DT_KERNEL_WIDTHS
+            and cfg.n_heads == DT_KERNEL_HEADS)
 
 
 def make_fused_dt_apply(model: DecisionTransformer) -> Callable:

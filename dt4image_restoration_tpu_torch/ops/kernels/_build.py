@@ -11,6 +11,7 @@ call of a kernel wrapper builds what it needs, and :func:`build` starts one
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,6 +20,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
@@ -99,10 +102,29 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def stream_handle(device) -> ctypes.c_void_p:
-    """PyTorch's current CUDA stream on ``device`` as a ctypes pointer."""
-    import torch
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream_handle(device) -> int:
+    """PyTorch's current CUDA stream on ``device`` (a ``torch.device``, an
+    index, or None for the current device) as an integer handle. Read it
+    for every launch, never cache it: a CUDA graph is captured on a stream
+    of its own. It asks PyTorch for the raw handle, as PyTorch's own
+    generated kernels do: building a ``torch.cuda.Stream`` for
+    ``current_stream().cuda_stream`` costs more host time than the launch
+    of a small kernel."""
+    index = getattr(device, "index", device)
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+_ALREADY_CURRENT = contextlib.nullcontext()
+
+
+def on_device(index: int):
+    """A context in which CUDA device ``index`` is current: nothing to
+    enter where it already is, as in a single-card process."""
+    if index == torch.cuda.current_device():
+        return _ALREADY_CURRENT
+    return torch.cuda.device(index)
 
 
 def check(rc: int, what: str) -> None:

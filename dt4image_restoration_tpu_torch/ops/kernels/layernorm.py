@@ -5,7 +5,8 @@ Replaces the TPU kernel ``layernorm_pallas``
 Decision Transformer's LayerNorms call when ``ModelConfig.use_pallas`` is
 set. On the H100 a LayerNorm of a few hundred 128-wide rows is bound by
 memory traffic and, at that size, by launch latency; the kernel is one
-pass with one warp per row; see the source for the details.
+pass with one warp per row, in blocks sized so that the rows spread over
+every SM; see the source for the details.
 
 :func:`layernorm_plain` is the plain PyTorch version with the same
 two-pass (centred) variance, which the wrapper runs for tensors on the CPU.
@@ -52,13 +53,14 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     :data:`MAX_FEATURES` and every tensor contiguous and 16-byte aligned.
     Returns a new tensor shaped like ``x``."""
     global launches
-    if x.device.type == "cpu":
-        return layernorm_plain(x, scale, bias, eps)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return layernorm_plain(x, scale, bias, eps)
         raise ValueError(f"unsupported device {x.device}")
     e = x.shape[-1]
-    if x.dtype != torch.float32 or scale.dtype != torch.float32 \
-            or bias.dtype != torch.float32:
+    f32 = torch.float32
+    if x.dtype is not f32 or scale.dtype is not f32 \
+            or bias.dtype is not f32:
         raise TypeError("x, scale and bias must be float32")
     if scale.shape != (e,) or bias.shape != (e,):
         raise ValueError(f"scale and bias must be ({e},), got "
@@ -66,20 +68,26 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     if e % 4 or not 4 <= e <= MAX_FEATURES:
         raise ValueError(f"layernorm kernel takes E a multiple of 4 up to "
                          f"{MAX_FEATURES}; got E={e}")
-    for name, t in (("x", x), ("scale", scale), ("bias", bias)):
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"{name} must be contiguous and 16-byte "
-                             "aligned")
+    index = x.get_device()
+    if scale.get_device() != index or bias.get_device() != index:
+        name, t = ("scale", scale) if scale.device != x.device \
+            else ("bias", bias)
+        raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if not (x.is_contiguous() and scale.is_contiguous()
+            and bias.is_contiguous()) \
+            or (x.data_ptr() | scale.data_ptr() | bias.data_ptr()) % 16:
+        name = next(n for n, t in (("x", x), ("scale", scale),
+                                   ("bias", bias))
+                    if not t.is_contiguous() or t.data_ptr() % 16)
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     out = torch.empty_like(x)
     rows = x.numel() // e
     if rows == 0:
         return out
-    with torch.cuda.device(x.device):
+    with _build.on_device(index):
         rc = _lib()(x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                     out.data_ptr(), rows, e, eps,
-                    _build.stream_handle(x.device))
+                    _build.stream_handle(index))
     _build.check(rc, "layernorm")
     launches += 1
     return out

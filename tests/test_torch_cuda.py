@@ -7,6 +7,8 @@ installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -14,13 +16,15 @@ import torch
 from dt4image_restoration_tpu_torch.config import MCTSConfig, ModelConfig
 from dt4image_restoration_tpu_torch.data import (EvaluationDataset,
                                                  write_eval_dir)
-from dt4image_restoration_tpu_torch.inference import MCTS
+from dt4image_restoration_tpu_torch.inference import MCTS, Evaluator
 from dt4image_restoration_tpu_torch.models import (DecisionTransformer,
                                                    UNetDenoiser,
+                                                   fused_forward_takes,
                                                    init_dt_params,
                                                    make_dt_apply,
                                                    proxy_value_fn,
                                                    random_unet_state_dict)
+from dt4image_restoration_tpu_torch.ops import kernels
 from dt4image_restoration_tpu_torch.ops.kernels import attention as k4
 from dt4image_restoration_tpu_torch.ops.kernels import conv_block as k1
 from dt4image_restoration_tpu_torch.ops.kernels import kspace as k2
@@ -168,6 +172,8 @@ def test_unet_on_card_matches_cpu(dev):
                                    (3, 4, 12, 32), (2, 2, 32, 64),
                                    (1, 3, 1, 20)])
 def test_attention_kernel_matches_plain(dev, shape):
+    """Contiguous inputs; the refusals: T past 96, a last stride that is
+    not 1."""
     rng = np.random.default_rng(4)
     q, k, v = (_f32(rng, shape).to(dev) for _ in range(3))
     before = k4.launches
@@ -177,11 +183,82 @@ def test_attention_kernel_matches_plain(dev, shape):
     ref = k4.fused_causal_attention_plain(q, k, v)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
     strided = torch.zeros(shape[:-1] + (2 * shape[-1],), device=dev)
-    with pytest.raises(ValueError, match="contiguous"):
+    with pytest.raises(ValueError, match="last stride of 1"):
         k4.fused_causal_attention(strided[..., ::2], k, v)
-    with pytest.raises(ValueError, match="T <= 32"):
-        x = torch.zeros((1, 1, 33, 8), device=dev)
+    with pytest.raises(ValueError, match="T <= 96"):
+        x = torch.zeros((1, 1, 97, 8), device=dev)
         k4.fused_causal_attention(x, x, x)
+
+
+def _qkv_views(x, h):
+    """q, k, v as the per-op forward cuts them from its (B, T, 3E)
+    projection: (B, H, T, D) views with a last stride of 1."""
+    b, t, e3 = x.shape
+    return tuple(a.reshape(b, t, h, e3 // (3 * h)).transpose(1, 2)
+                 for a in x.split(e3 // 3, dim=-1))
+
+
+@pytest.mark.parametrize("b,h,d", [(16, 4, 32), (63, 4, 32), (2, 2, 64),
+                                   (3, 4, 16), (2, 1, 6)])
+@pytest.mark.parametrize("t", [1, 18, 32, 33, 90, 96])
+def test_attention_kernel_on_strided_views(dev, b, h, d, t):
+    """K4 on the views of one (B, T, 3E) tensor, max abs error <= 1e-5
+    against the plain version; its output is the (B, H, T, D) view of a
+    contiguous (B, T, H, D) tensor, so merging the heads copies nothing.
+    D = 6 takes the 4-byte copies."""
+    x = _f32(np.random.default_rng(10), (b, t, 3 * h * d)).to(dev)
+    q, k, v = _qkv_views(x, h)
+    before = k4.launches
+    got = k4.fused_causal_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1
+    assert got.shape == (b, h, t, d) and got.transpose(1, 2).is_contiguous()
+    ref = k4.fused_causal_attention_plain(q, k, v)
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+def _graph_replay(fn):
+    """``fn()``'s result from one replay of a CUDA graph that captured it."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def test_attention_kernel_in_cuda_graph(dev):
+    """K4 captured in a CUDA graph behind the product that feeds it, as in
+    the per-op forward, and replayed."""
+    rng = np.random.default_rng(11)
+    x = _f32(rng, (16, 18, 128)).to(dev)
+    w = _f32(rng, (384, 128), 0.1).to(dev)
+
+    def fn():
+        return k4.fused_causal_attention(*_qkv_views(x @ w.t(), 4))
+    got = _graph_replay(fn)
+    ref = k4.fused_causal_attention_plain(*_qkv_views(x @ w.t(), 4))
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(288, 128), (1134, 128), (4, 18, 128)])
+def test_layernorm_kernel_in_cuda_graph(dev, shape):
+    """K5 captured in a CUDA graph behind the op that feeds it and
+    replayed, at the search's and the evaluation's rows."""
+    rng = np.random.default_rng(12)
+    e = shape[-1]
+    x = (_f32(rng, shape) + 3.0).to(dev)
+    scale = (1 + _f32(rng, (e,), 0.1)).to(dev)
+    bias = _f32(rng, (e,), 0.1).to(dev)
+    got = _graph_replay(lambda: k5.layernorm(x * 2.0, scale, bias))
+    ref = k5.layernorm_plain(x * 2.0, scale, bias)
+    assert float((got - ref).abs().max()) <= 1e-5
 
 
 @pytest.mark.parametrize("shape", [(288, 128), (1134, 128), (1, 128),
@@ -263,3 +340,120 @@ def test_search_on_card_matches_cpu(dev, tmp_path):
         for x, y in zip(a, b):
             np.testing.assert_allclose(x["probs"], y["probs"], rtol=1e-4)
     np.testing.assert_allclose(r_gpu, r_cpu, rtol=0, atol=0.05)
+
+
+def _long_window_policy(cfg, device):
+    dt = DecisionTransformer(cfg).eval().requires_grad_(False)
+    dt.load_state_dict(init_dt_params(cfg, seed=0))
+    with torch.no_grad():
+        dt.predict_action.bias[0] = -3.0   # T: no early stops
+    return dt.to(device)
+
+
+@pytest.mark.parametrize("block_size", [36, 90])
+def test_evaluator_on_card_matches_cpu_at_long_windows(dev, tmp_path,
+                                                       block_size):
+    """Past K3's 32 tokens the evaluator runs the per-op forward (K4, K5)
+    on the card; two slices match the CPU run: equal episode lengths,
+    rewards within 0.05 dB."""
+    cfg = ModelConfig(block_size=block_size, use_pallas=True)
+    assert not fused_forward_takes(cfg)
+    d = write_eval_dir(str(tmp_path / "4_15"), "4_15", n=2, seed=13)
+    records = [EvaluationDataset(d, 10.0)[i] for i in range(2)]
+    unet = UNetDenoiser().eval().requires_grad_(False)
+    unet.load_state_dict(random_unet_state_dict(0))
+    runs = {}
+    for device in ("cpu", dev):
+        kernels.reset_launch_counts()
+        runs[str(device)] = Evaluator(
+            dt=_long_window_policy(cfg, device), denoise=unet.to(device),
+            cfg=cfg, max_timesteps=30, device=device).evaluate_records(
+                records)
+        counts = kernels.launch_counts()
+    assert counts["dt_decode"] == 0
+    assert counts["attention"] > 0 and counts["layernorm"] > 0
+    cpu, gpu = runs["cpu"], runs[str(dev)]
+    np.testing.assert_array_equal(gpu["episode_len"], cpu["episode_len"])
+    assert np.all(gpu["episode_len"] == 30)
+    np.testing.assert_allclose(gpu["reward"], cpu["reward"], rtol=0,
+                               atol=0.05)
+
+
+@pytest.mark.parametrize("block_size,use_pallas,refused", [
+    (36, False, True), (90, False, True), (36, True, False),
+    (18, False, False)])
+def test_evaluator_refuses_per_op_forward_without_kernels(
+        dev, block_size, use_pallas, refused):
+    """Past K3's 32 tokens the evaluator's per-op forward must run K4 and
+    K5 on the card: a policy built without ``use_pallas`` is refused when
+    the evaluator is made, before anything launches. Up to 32 tokens the
+    fused forward runs and the flag does not matter."""
+    cfg = ModelConfig(block_size=block_size, use_pallas=use_pallas)
+    dt = DecisionTransformer(cfg).eval().requires_grad_(False).to(dev)
+    kw = dict(dt=dt, denoise=lambda x, sigma: x, cfg=cfg, device=dev)
+    if refused:
+        with pytest.raises(ValueError, match="use_pallas=True"):
+            Evaluator(**kw)
+        # A forward the caller hands over is run as it is.
+        Evaluator(dt_apply=make_dt_apply(dt), **kw)
+    else:
+        Evaluator(**kw)
+
+
+@pytest.mark.parametrize("block_size", [36, 90])
+def test_search_on_card_matches_cpu_at_long_windows(dev, tmp_path,
+                                                    block_size):
+    """Two search rounds of one tree with 12- and 30-timestep windows: the
+    card's trace equals the CPU's, priors and reward agree."""
+    cfg = ModelConfig(block_size=block_size, use_pallas=True)
+    d = write_eval_dir(str(tmp_path / "4_15"), "4_15", n=1, seed=14)
+    record = EvaluationDataset(d, 5.0)[0]
+    runs = []
+    for device in ("cpu", dev):
+        unet = UNetDenoiser().eval().requires_grad_(False)
+        unet.load_state_dict(random_unet_state_dict(0))
+        m = MCTS(dt=_long_window_policy(cfg, device), denoise=unet.to(device),
+                 model_cfg=cfg,
+                 cfg=MCTSConfig(iterations=2, max_timesteps=30),
+                 value_fn=proxy_value_fn, record_trace=True, device=device)
+        runs.append((m.run(record, seed=0), m.traces[0]))
+    (r_cpu, t_cpu), (r_gpu, t_gpu) = runs
+    key = ("iter", "time", "edge", "index")
+    assert [[e[k] for k in key] for e in t_gpu] \
+        == [[e[k] for k in key] for e in t_cpu]
+    for x, y in zip(t_gpu, t_cpu):
+        np.testing.assert_allclose(x["probs"], y["probs"], rtol=1e-4)
+    assert abs(r_gpu - r_cpu) <= 0.05
+
+
+@pytest.mark.parametrize("verb", ["eval", "flex", "mcts"])
+@pytest.mark.parametrize("block_size", [36, 90])
+def test_verbs_on_card_at_long_windows(dev, tmp_path, monkeypatch, capsys,
+                                       verb, block_size):
+    """The verbs run --block_size 36 and 90 on the card with kernels K4
+    and K5 (the search cut to two rounds) and print finite results."""
+    from dt4image_restoration_tpu_torch import __main__ as cli
+    from dt4image_restoration_tpu_torch import config
+    d = write_eval_dir(str(tmp_path / "4_15"), "4_15", n=1, seed=15)
+    monkeypatch.setattr(config, "MCTSConfig",
+                        functools.partial(config.MCTSConfig, iterations=2))
+    args = ["--block_size", str(block_size), "--n_embeds",
+            "6" if verb == "flex" else "9", "--device", "cuda", verb]
+    if verb != "flex":
+        args += ["--rtg", "5"]
+    kernels.reset_launch_counts()
+    cli.main(args + ["--max_timesteps", "30", "--checkpoint",
+                     str(tmp_path / "n.pt"), "--denoiser_ckpt",
+                     str(tmp_path / "n.pt"), "--data_dirs", d])
+    counts = kernels.launch_counts()
+    r = capsys.readouterr()
+    assert counts["dt_decode"] == 0
+    assert counts["attention"] > 0 and counts["layernorm"] > 0
+    if verb != "mcts":
+        assert "policy forward: per-op (kernels K4, K5)" in r.err
+    numbers = [float(ln.rsplit(",", 1)[1] if "," in ln
+                     else ln.split(":", 1)[1])
+               for ln in r.out.splitlines()
+               if ln.startswith(("Average reward", "MCTS Reward:",
+                                 "Total MCTS reward:"))]
+    assert numbers and all(np.isfinite(numbers)), r.out

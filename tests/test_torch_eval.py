@@ -120,6 +120,58 @@ def test_evaluator_matches_jax(eval_dirs, denoisers, jax_programs,
     assert m["final_state"].x.shape == (4, 1, SIZE, SIZE)
 
 
+def test_evaluator_at_block_size_36_matches_jax(eval_dirs, denoisers,
+                                                monkeypatch):
+    """Past K3's 32 tokens (12-timestep windows, 36 tokens) the evaluator
+    runs the per-op forward, never the fused one, and matches the JAX
+    evaluator's per-op forward over 30 steps."""
+    model_den, j_denoise = denoisers
+    kw = dict(CFG_KW, block_size=36)
+    jcfg = JModelConfig(**kw)
+    params = jax.tree.map(np.array, j_init_dt_params(jcfg, seed=2))
+    params["predict_action"]["bias"][0] = -3.0   # T: no early stops
+    records = [JEvaluationDataset(d, rtg_target=10.0)[i]
+               for d in eval_dirs for i in range(2)]
+    jm = JEvaluator(dt_apply=j_make_dt_apply(jcfg), dt_params=params,
+                    denoise=j_denoise, cfg=jcfg, max_timesteps=30,
+                    rtg_target=10.0).evaluate_records(records)
+
+    def refuse(model):
+        raise AssertionError("the fused forward was built for 36 tokens")
+    monkeypatch.setattr(tev, "make_fused_dt_apply", refuse)
+    cfg = ModelConfig(**kw, use_pallas=True)
+    dt = load_strict(DecisionTransformer(cfg), dt_from_jax(params, cfg),
+                     "dt").eval().requires_grad_(False)
+    m = Evaluator(dt=dt, denoise=model_den, cfg=cfg, max_timesteps=30,
+                  rtg_target=10.0, device="cpu").evaluate_records(records)
+    np.testing.assert_array_equal(m["episode_len"],
+                                  np.asarray(jm["episode_len"]))
+    assert np.all(m["episode_len"] == 30)
+    np.testing.assert_allclose(m["reward"], np.asarray(jm["reward"]),
+                               rtol=0, atol=0.05)
+
+
+@pytest.mark.parametrize("block_size,fused", [(18, True), (33, False)])
+def test_evaluator_picks_forward_from_config(eval_dirs, denoisers,
+                                             monkeypatch, block_size,
+                                             fused):
+    """Without a ``dt_apply`` the evaluator builds the fused forward where
+    K3 takes the config and the per-op forward where it does not."""
+    model_den, _ = denoisers
+    built = []
+    for name in ("make_fused_dt_apply", "make_dt_apply"):
+        def spy(model, name=name, real=getattr(tev, name)):
+            built.append(name)
+            return real(model)
+        monkeypatch.setattr(tev, name, spy)
+    cfg = ModelConfig(**dict(CFG_KW, block_size=block_size))
+    dt = DecisionTransformer(cfg).eval().requires_grad_(False)
+    Evaluator(dt=dt, denoise=model_den, cfg=cfg, max_timesteps=11,
+              device="cpu").evaluate_records(
+                  [EvaluationDataset(eval_dirs[0], 10.0)[0]])
+    assert built == ["make_fused_dt_apply" if fused else "make_dt_apply"]
+
+
 def test_evaluator_run_prints_per_directory(eval_dirs, denoisers,
                                             capsys):
     model_den, _ = denoisers

@@ -346,15 +346,26 @@ def test_dt_decode_sequences_per_cluster(b, t, clusters, s):
 
 # --- K4 -----------------------------------------------------------------
 
+@pytest.mark.parametrize("strided", [False, True])
 @pytest.mark.parametrize("shape", [(2, 4, 18, 32), (3, 4, 12, 32),
-                                   (1, 2, 5, 16)])
-def test_attention_plain_matches_pallas(rng, shape):
-    q, k, v = (rng.standard_normal(shape).astype(np.float32)
-               for _ in range(3))
+                                   (1, 2, 5, 16), (2, 4, 33, 32),
+                                   (1, 4, 90, 32)])
+def test_attention_plain_matches_pallas(rng, shape, strided):
+    """Contiguous inputs, and (``strided``) the views the per-op forward
+    cuts from one (B, T, 3E) projection: split, reshape, transpose."""
+    b, h, t, d = shape
+    if strided:
+        qkv = torch.from_numpy(
+            rng.standard_normal((b, t, 3 * h * d)).astype(np.float32))
+        q, k, v = (a.reshape(b, t, h, d).transpose(1, 2)
+                   for a in qkv.split(h * d, dim=-1))
+        assert not q.is_contiguous() and q.stride()[-1] == 1
+    else:
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape)
+                                    .astype(np.float32)) for _ in range(3))
     ref = np.asarray(j_fused_causal_attention(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True))
-    got = k4.fused_causal_attention(torch.from_numpy(q), torch.from_numpy(k),
-                                    torch.from_numpy(v))
+        *(jnp.asarray(a.numpy()) for a in (q, k, v)), interpret=True))
+    got = k4.fused_causal_attention(q, k, v)
     assert got.shape == shape
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)
 

@@ -15,8 +15,8 @@ from dt4image_restoration_tpu.utils.checkpoint import (
     export_dt_state_dict, export_unet_state_dict)
 from dt4image_restoration_tpu_torch.config import ModelConfig
 from dt4image_restoration_tpu_torch.models import (
-    DecisionTransformer, UNetDenoiser, make_dt_apply, make_dt_embed_apply,
-    make_fused_dt_apply, make_state_encode)
+    DecisionTransformer, UNetDenoiser, fused_forward_takes, make_dt_apply,
+    make_dt_embed_apply, make_fused_dt_apply, make_state_encode)
 from dt4image_restoration_tpu_torch.utils.convert import (
     dt_from_jax, dt_from_reference, load_strict, unet_from_jax,
     unet_from_reference)
@@ -103,9 +103,12 @@ def dt_pair():
 
 
 def _dt_inputs(rng, b=3, t=6):
+    # Timesteps from 3, or as late as max_timestep 30 allows.
+    first = min(3, 30 - t)
     return (rng.uniform(0, 1, (b, t, 1)).astype(np.float32),
             rng.uniform(0, 1, (b, t, 48 * 48)).astype(np.float32),
-            np.broadcast_to(np.arange(t, dtype=np.int32)[None] + 3, (b, t)),
+            np.broadcast_to(np.arange(t, dtype=np.int32)[None] + first,
+                            (b, t)),
             rng.integers(0, 9, (b, t)).astype(np.int32),
             rng.uniform(0, 1, (b, t, 3)).astype(np.float32))
 
@@ -142,19 +145,22 @@ def test_dt_matches_jax(rng, dt_pair, three_token, mode):
         assert got.pred_rtg is None
 
 
+@pytest.mark.parametrize("block_size", [18, 36, 90])
 @pytest.mark.parametrize("three_token", [True, False])
 @pytest.mark.parametrize("use_pallas", [True, False])
 def test_dt_per_op_kernel_flag_matches_jax(rng, dt_pair, use_pallas,
-                                           three_token):
+                                           three_token, block_size):
     """The per-op forward with K4 and K5 (their plain versions here)
     against the JAX forward with the same flag, whose Pallas kernels run in
-    interpret mode."""
+    interpret mode, at windows of 6, 12 and 30 timesteps (18, 36 and 90
+    tokens: past K3's 32 from block_size 33 on)."""
     _, params, _, _ = dt_pair
-    cfg = ModelConfig(**CFG_KW, use_pallas=use_pallas)
-    jcfg = JModelConfig(**CFG_KW, use_pallas=use_pallas)
+    kw = dict(CFG_KW, block_size=block_size, use_pallas=use_pallas)
+    cfg, jcfg = ModelConfig(**kw), JModelConfig(**kw)
     model = load_strict(DecisionTransformer(cfg), dt_from_jax(params, cfg),
                         "dt").eval().requires_grad_(False)
-    rtg, states, ts, task, actions = _dt_inputs(rng)
+    rtg, states, ts, task, actions = _dt_inputs(rng,
+                                                t=cfg.context_length)
     acts = actions if three_token else None
     ref = jax.jit(j_make_dt_apply(jcfg))(
         params, jnp.asarray(rtg), jnp.asarray(states), jnp.asarray(ts),
@@ -170,6 +176,21 @@ def test_dt_per_op_kernel_flag_matches_jax(rng, dt_pair, use_pallas,
         np.testing.assert_allclose(got.pred_rtg.numpy(),
                                    np.asarray(ref.pred_rtg), rtol=2e-3,
                                    atol=1e-5)
+
+
+@pytest.mark.parametrize("cfg_kw,fused", [
+    (dict(block_size=18), True),
+    (dict(block_size=32), True),     # 30 tokens
+    (dict(block_size=33), False),    # 33 tokens: past K3's 32
+    (dict(block_size=90), False),
+    (dict(block_size=18, embed_dim=64), True),
+    (dict(block_size=18, embed_dim=32, n_heads=2), False),
+    (dict(block_size=18, n_heads=2), False),
+])
+def test_fused_forward_takes(cfg_kw, fused):
+    """The forward is chosen from the config alone: K3 takes 3 T tokens up
+    to its MAX_TOKENS at its widths with 4 heads."""
+    assert fused_forward_takes(ModelConfig(**cfg_kw)) is fused
 
 
 @pytest.mark.parametrize("three_token", [True, False])

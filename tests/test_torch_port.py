@@ -124,6 +124,35 @@ def test_cli_eval_on_cpu(tmp_path):
     assert np.isfinite(float(lines["Average reward"]))
 
 
+def test_cli_eval_block_size_36_on_cpu(tmp_path):
+    """At --block_size 36 (36 tokens, past the fused kernel K3's 32) eval
+    says on stderr that it runs the per-op forward and prints what it
+    prints at 18; at 18 it says the fused one."""
+    from dt4image_restoration_tpu_torch.data import write_eval_dir
+    d = write_eval_dir(str(tmp_path / "4_10"), "4_10", n=1, size=128)
+    outs = {}
+    for block in ("36", "18"):
+        r = _run(["-m", "dt4image_restoration_tpu_torch", "--block_size",
+                  block, "--device", "cpu", "eval", "--rtg", "10",
+                  "--max_timesteps", "12",
+                  "--checkpoint", str(tmp_path / "none.pt"),
+                  "--denoiser_ckpt", str(tmp_path / "none.pt"),
+                  "--data_dirs", d], cwd=tmp_path)
+        assert r.returncode == 0, r.stderr
+        outs[block] = r
+    forward = {b: [ln for ln in r.stderr.splitlines()
+                   if ln.startswith("policy forward:")]
+               for b, r in outs.items()}
+    assert len(forward["36"]) == 1 and "per-op (kernels K4, K5)" \
+        in forward["36"][0] and "36 tokens" in forward["36"][0]
+    assert forward["18"] == ["policy forward: fused (kernel K3)"]
+    lines = dict(ln.rsplit(",", 1) for ln in outs["36"].stdout.splitlines()
+                 if "," in ln)
+    assert 1 <= float(lines["Average iter"]) <= 12
+    assert np.isfinite(float(lines["Average reward"]))
+    assert _labels(outs["36"].stdout) == _labels(outs["18"].stdout)
+
+
 def test_cli_flex_on_cpu(tmp_path):
     """flex evaluates every RTG target of the flexible experiment and, like
     the JAX command line, prints no search total."""
