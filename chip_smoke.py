@@ -18,7 +18,17 @@ prints one JSON line per phase. The paths:
   * mcts: the PUCB tree search of 16 of those slices, 30 rounds each, with
     the per-op policy forward (K1, K2, K4, K5) and the proxy scorer, then
     one tree on the card and on the CPU at --block_size 18 and 36; then
-    ARNIQA scores of 16 slices on the card and on the CPU.
+    ARNIQA scores of 16 slices on the card and on the CPU;
+  * train: ``Trainer.train()`` of the Decision Transformer at the published
+    widths with the default TrainerConfig (batch 48, 6-timestep windows of
+    128x128 states), 2 epochs of 25 seeded batches, asynchronous
+    checkpoints keeping the last one; then 3 updates on the card against
+    the CPU (dropout off, warmup 2), and 2 updates, a preemption save, a
+    resume and 2 more against 4 straight updates. Training runs none of
+    K1-K5 (they have no backward);
+  * trace: ``torch.profiler`` (``utils/profiling.py``) over one train step
+    at B=48 and one ADMM iteration at B=63 and at B=1: device ms, idle
+    share and the largest device ops of each.
 
 K1 is timed at the batches of these paths (1, 16, 63 and 96 slices), K3
 at one slice and at 63, both bounded by the 3xTF32 tensor-core rate; K3 is
@@ -57,6 +67,8 @@ EVAL_BATCH = 63                        # 9 directories x 7 images
 SEARCH_BATCH = 16                      # trees per search chunk (CLI default)
 SEARCH_RTG = 5.0
 EXPANSION_BATCH = 96                   # the search's 6-slot expansion
+TRAIN_BATCH, TRAIN_T = 48, 6           # TrainerConfig's batch, 18 tokens
+TRAIN_STEPS, TRAIN_EPOCHS = 25, 2      # batches an epoch, epochs
 H100_F32_FLOPS = 67e12                 # float32 outside the tensor cores
 # K1 runs float32-accurate products on the TF32 tensor cores (495 TFLOP/s)
 # as three TF32 products each (3xTF32).
@@ -168,11 +180,16 @@ def max_errors(got, ref):
     return abs_err, rel_err
 
 
-def phase_device(torch, kernels_build):
-    smi = subprocess.run(
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def phase_device(torch, kernels_build):
+    smi = nvidia_smi()
     print(smi, flush=True)
     build_s = kernels_build.build()
     ptxas = {name: [ln.strip() for ln in
@@ -669,6 +686,239 @@ def phase_arniqa(torch, dev, dirs):
     return out
 
 
+def train_batches(n: int, seed: int = 0):
+    """``n`` seeded host batches as benchmarks/train_bench.py builds them
+    (B=48, 6 timesteps, 128x128 states, 9 tasks), where row i keeps
+    6 - i % 4 valid timesteps and zeros after them, as the dataset pads
+    short trajectories: the masked mean counts 216 of 288 positions."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    b, t = TRAIN_BATCH, TRAIN_T
+    masks = (np.arange(t)[None, :] < (t - np.arange(b) % 4)[:, None]
+             ).astype(np.float32)[..., None]
+    return [{
+        "states": rng.uniform(0, 1, (b, t, 128 * 128)).astype(np.float32)
+        * masks,
+        "actions": rng.uniform(0, 1, (b, t, 3)).astype(np.float32) * masks,
+        "rtg": rng.uniform(0, 1, (b, t, 1)).astype(np.float32) * masks,
+        "traj_masks": masks,
+        "timesteps": np.broadcast_to(np.arange(t, dtype=np.int32)[None, :,
+                                                                   None],
+                                     (b, t, 1)).copy(),
+        "task": rng.integers(0, 9, (b, t)).astype(np.int32),
+    } for _ in range(n)]
+
+
+def _train_model(torch, device, seed=0, **cfg_kw):
+    """The published DT (block 18, embed 128, 4 heads, 5 blocks, 9 tasks)
+    with random weights from ``seed``, as the train verb builds it."""
+    from dt4image_restoration_tpu_torch.config import ModelConfig
+    from dt4image_restoration_tpu_torch.models import (DecisionTransformer,
+                                                       init_dt_params)
+    cfg = ModelConfig(block_size=18, n_embeds=9, **cfg_kw)
+    model = DecisionTransformer(cfg)
+    model.load_state_dict(init_dt_params(cfg, seed))
+    return model.to(device)
+
+
+def _trainer(torch, device, batches, ckpt_dir, seed=0, stop_after=None,
+             **kw):
+    """A Trainer of one epoch over ``batches`` (default TrainerConfig),
+    whose step records its losses and, after ``stop_after`` steps,
+    requests the stop that SIGTERM would."""
+    from dt4image_restoration_tpu_torch.config import TrainerConfig
+    from dt4image_restoration_tpu_torch.training import (Trainer,
+                                                         init_train_state,
+                                                         make_train_step)
+    tcfg = TrainerConfig(max_epochs=kw.pop("max_epochs", 1))
+    step, losses = make_train_step(), []
+
+    def recorded(state, batch):
+        losses.append(step(state, batch))
+        if stop_after is not None and len(losses) == stop_after:
+            trainer.request_stop()
+        return losses[-1]
+
+    n_steps = tcfg.max_epochs * len(batches)
+    trainer = Trainer(
+        train_step=recorded, config=tcfg,
+        state=init_train_state(_train_model(torch, device, seed), tcfg,
+                               n_steps),
+        batches=lambda epoch: iter(batches), checkpoint_dir=ckpt_dir, **kw)
+    return trainer, losses
+
+
+def _leaf_errors(got, ref):
+    """Per parameter tensor: the 2-norm of the error over the 2-norm of
+    ``ref``, and the largest error over the largest value of ``ref``."""
+    out = {}
+    for name, r in ref.items():
+        d = (got[name].double() - r.double())
+        out[name] = (float(d.norm() / r.double().norm().clamp_min(1e-30)),
+                     float(d.abs().max() / r.double().abs().max()
+                           .clamp_min(1e-30)))
+    return out
+
+
+def phase_train(torch, dev, tmp, kernels):
+    """``Trainer.train()`` at the published widths, then the card/CPU and
+    resume checks. Returns the train path's kernel launches."""
+    from dt4image_restoration_tpu_torch.config import TrainerConfig
+    from dt4image_restoration_tpu_torch.training import (init_train_state,
+                                                         make_train_step,
+                                                         shard_batch)
+    batches = train_batches(TRAIN_STEPS)
+    ckpt = os.path.join(tmp, "train")
+    trainer, losses = _trainer(torch, dev, batches, ckpt,
+                               max_epochs=TRAIN_EPOCHS, async_save=True,
+                               keep_last=1)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    losses = [float(x) for x in losses]
+    timing = trainer.step_timer.summary()
+    n = len(losses)
+
+    # Card vs CPU: 3 updates from one init, dropout off, warmup 2 so that
+    # updates 2 and 3 run at lr 1.5e-4 and 3e-4.
+    tcfg = TrainerConfig(warmup_steps=2)
+    runs = []
+    for device in (dev, "cpu"):
+        model = _train_model(torch, device, dropout=0.0, embd_dropout=0.0)
+        state = init_train_state(model, tcfg, 10)
+        step = make_train_step()
+        runs.append(([float(step(state, shard_batch(b, device)))
+                      for b in batches[:3]],
+                     {k: p.detach().cpu() for k, p in
+                      model.named_parameters()}))
+    (gpu_losses, gpu_p), (cpu_losses, cpu_p) = runs
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gpu_losses,
+                                                        cpu_losses))
+    errs = _leaf_errors(gpu_p, cpu_p)
+    norm_rel = max(e[0] for e in errs.values())
+    # The QKV biases' key thirds get gradients that are zero in exact
+    # arithmetic; their rounding noise sets those entries' updates, so only
+    # the norm bound holds them (tests/test_torch_train.py:_close_leaf).
+    max_rel = max(e[1] for k, e in errs.items()
+                  if not k.endswith("qkv_proj.bias"))
+
+    # Resume: 2 updates, a stop (the preemption save), a Trainer resuming
+    # from state_latest.pt on weights of another seed and 2 more updates,
+    # against 4 straight updates (dropout on). cuDNN's deterministic
+    # algorithms make the two runs' arithmetic the same.
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        straight, straight_losses = _trainer(
+            torch, dev, batches[:4], os.path.join(tmp, "straight"))
+        straight.train()
+        first, _ = _trainer(torch, dev, batches[:4],
+                            os.path.join(tmp, "first"), stop_after=2)
+        first.train()
+        resumed, resumed_losses = _trainer(
+            torch, dev, batches[2:4], os.path.join(tmp, "resumed"), seed=1,
+            resume_from=os.path.join(tmp, "first", "state_latest.pt"))
+        resumed.train()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    resume_rel = max(e[1] for e in _leaf_errors(
+        {k: p.detach().cpu() for k, p in
+         resumed.state.model.named_parameters()},
+        {k: p.detach().cpu() for k, p in
+         straight.state.model.named_parameters()}).values())
+    resume_loss_rel = max(abs(float(a) - float(b)) / abs(float(b)) for a, b
+                          in zip(resumed_losses, straight_losses[2:]))
+
+    out = {"phase": "train", "nvidia_smi": nvidia_smi(),
+           "batch": TRAIN_BATCH, "timesteps": TRAIN_T, "steps": n,
+           "epochs": TRAIN_EPOCHS, "wall_s": wall,
+           "steps_per_s": n / wall,
+           "samples_per_s": n * TRAIN_BATCH / wall,
+           "step_p50_ms": 1e3 * timing["p50_s"],
+           "step_p95_ms": 1e3 * timing["p95_s"],
+           "steady_samples_per_s": TRAIN_BATCH / timing["p50_s"],
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "max_memory_allocated_mb":
+               torch.cuda.max_memory_allocated() / 2 ** 20,
+           "checkpoints": sorted(os.listdir(ckpt)),
+           "launches": counts,
+           "check_loss_gpu": gpu_losses, "check_loss_cpu": cpu_losses,
+           "check_loss_max_rel": loss_rel,
+           "check_param_norm_rel": norm_rel,
+           "check_param_max_rel": max_rel,
+           "resume_steps": [first.state.step, resumed.state.step],
+           "resume_param_max_rel": resume_rel,
+           "resume_loss_max_rel": resume_loss_rel}
+    emit(out)
+    if n != TRAIN_STEPS * TRAIN_EPOCHS or not all(map(math.isfinite,
+                                                      losses)):
+        raise AssertionError(f"training ran {n} steps, losses {losses}")
+    if out["checkpoints"] != ["model_1.pt", "state_latest.pt"]:
+        raise AssertionError(f"checkpoints {out['checkpoints']}")
+    if not (loss_rel <= 1e-5 and norm_rel <= 2e-4 and max_rel <= 2e-4):
+        raise AssertionError("training on the card disagrees with the CPU: "
+                             f"loss {loss_rel}, parameters {norm_rel} "
+                             f"(norm), {max_rel} (max)")
+    if out["resume_steps"] != [2, 4] or not (resume_rel <= 1e-6
+                                             and resume_loss_rel <= 1e-6):
+        raise AssertionError(f"the resumed run differs from the straight "
+                             f"one: {resume_rel}, {resume_loss_rel}")
+    return counts
+
+
+def phase_trace(torch, dev, ckpt_dir, tmp):
+    """One train step (B=48) and one ADMM iteration at B=63 and at B=1
+    under ``torch.profiler``, each region synchronised at both ends and
+    run once untraced first."""
+    from dt4image_restoration_tpu_torch.config import TrainerConfig
+    from dt4image_restoration_tpu_torch.data import make_mat_record
+    from dt4image_restoration_tpu_torch.env import admm_step, reset_from_mat
+    from dt4image_restoration_tpu_torch.training import (init_train_state,
+                                                         make_train_step,
+                                                         shard_batch)
+    from dt4image_restoration_tpu_torch.utils.loaders import load_denoiser
+    from dt4image_restoration_tpu_torch.utils.profiling import (
+        TRACE_FILE, annotate, region_breakdown, trace_if_enabled)
+
+    tcfg = TrainerConfig()
+    state = init_train_state(_train_model(torch, dev), tcfg, 100)
+    step = make_train_step()
+    batch = shard_batch(train_batches(1, seed=5)[0], dev)
+    den = load_denoiser(os.path.join(ckpt_dir, "unet-nm.pt"), device=dev)
+    rec = make_mat_record(size=128, acceleration=4, noise_sigma=15.0, seed=0)
+    one = reset_from_mat(rec, device=dev)
+    many = reset_from_mat({k: v.repeat(EVAL_BATCH, axis=0)
+                           for k, v in rec.items()}, device=dev)
+    action = {"T": 0.0, "mu": MU, "sigma_d": SIGMA_D}
+    regions = {f"train_step B={TRAIN_BATCH}": lambda: step(state, batch),
+               f"admm B={EVAL_BATCH}": lambda: admm_step(den, many, action),
+               "admm B=1": lambda: admm_step(den, one, action)}
+    for fn in regions.values():
+        fn()
+    trace_dir = os.path.join(tmp, "trace")
+    with trace_if_enabled(trace_dir):
+        for name, fn in regions.items():
+            torch.cuda.synchronize()
+            with annotate(name):
+                fn()
+                torch.cuda.synchronize()
+    with open(os.path.join(trace_dir, TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    out = {"phase": "trace", "nvidia_smi": nvidia_smi(),
+           "regions": {name: region_breakdown(events, name)
+                       for name in regions}}
+    emit(out)
+    idle = [n for n, r in out["regions"].items() if r["device_ms"] <= 0]
+    if idle:
+        raise AssertionError(f"no device work traced in {idle}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -707,7 +957,12 @@ def main() -> int:
         paths["eval"] = kernels.launch_counts()
         paths["mcts"] = phase_mcts(torch, dev, ckpt_dir, dirs, kernels)
         phase_arniqa(torch, dev, dirs)
+        paths["train"] = phase_train(torch, dev, tmp, kernels)
+        phase_trace(torch, dev, ckpt_dir, tmp)
     emit({"phase": "launches", "paths": paths})
+    if any(paths["train"].values()):
+        raise AssertionError(f"the train path launched kernels: "
+                             f"{paths['train']}")
     for path, want in (("rollout", ("conv_block", "kspace")),
                        ("eval", ("conv_block", "kspace", "dt_decode")),
                        ("mcts", ("conv_block", "kspace", "attention",

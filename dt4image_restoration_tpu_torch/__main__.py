@@ -1,6 +1,8 @@
-"""Command line of the PyTorch/CUDA port: greedy evaluation and tree
-search.
+"""Command line of the PyTorch/CUDA port: training, greedy evaluation and
+tree search.
 
+    python -m dt4image_restoration_tpu_torch --block_size 18 train \\
+        --batch_size 48 --save_every 1 --max_epochs 5
     python -m dt4image_restoration_tpu_torch --block_size 18 --n_embeds 9 \\
         eval --rtg 10 --max_timesteps 30
     python -m dt4image_restoration_tpu_torch --block_size 18 --n_embeds 6 \\
@@ -17,6 +19,12 @@ forward with kernels K4 and K5 above that, and say which on stderr;
 ``mcts`` runs the per-op forward with K4 and K5 and scores leaves with
 ARNIQA when ``--arniqa_ckpt`` names a hub checkpoint, else with the proxy
 scorer. K4 takes every ``--block_size`` that ``max_timestep`` 30 allows.
+``train`` reads trajectory jsons and an HDF5 state file (h5py), trains the
+Decision Transformer without the kernels (they have no backward), and
+writes ``model_<epoch>.pt`` in the reference's layout (which ``eval
+--checkpoint`` reads) and ``state_latest.pt`` (``--resume``). Under
+``torchrun`` it trains data-parallel, one process per device, with
+``--batch_size`` per process.
 """
 from __future__ import annotations
 
@@ -42,6 +50,40 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device; 'cpu' runs the kernels' plain "
                         "PyTorch versions")
     sub = p.add_subparsers(dest="mode", required=True)
+
+    t = sub.add_parser("train")
+    t.add_argument("--batch_size", type=int, required=True,
+                   help="per process")
+    t.add_argument("--ddp", action="store_true",
+                   help="accepted for parity with the JAX CLI; under "
+                        "torchrun the run is always data-parallel")
+    t.add_argument("--compile", action="store_true",
+                   help="accepted for parity with the JAX CLI; the step "
+                        "runs eagerly")
+    t.add_argument("--save_every", type=int, required=True)
+    t.add_argument("--max_epochs", type=int, required=True)
+    t.add_argument("--training_type", default="optimal",
+                   choices=["optimal", "flexible"])
+    t.add_argument("--data_dir", default="dataset/data/new_json_folder")
+    t.add_argument("--state_file", default="dataset/data/data_1_410.h5")
+    t.add_argument("--checkpoint_dir", default="checkpoints")
+    t.add_argument("--resume", default=None,
+                   help="path of a state_latest.pt to resume from")
+    t.add_argument("--dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="compute dtype of forward and loss (bfloat16: "
+                        "autocast, float32 parameters and optimizer)")
+    t.add_argument("--keep_last", type=int, default=None,
+                   help="keep only the newest N model_<epoch>.pt (default: "
+                        "all); state_latest.pt is never removed")
+    t.add_argument("--async_save", action="store_true",
+                   help="epoch checkpoints on a background writer "
+                        "(preemption saves stay synchronous)")
+    t.add_argument("--preload_data", action="store_true",
+                   help="read every trajectory and uint8 state once and "
+                        "gather batch states from memory (the same "
+                        "batches)")
+
     for name, ckpt in (("eval", "checkpoints/model_experiment_2.pt"),
                        ("mcts", "checkpoints/model_experiment_2.pt"),
                        ("flex", "checkpoints/model_experiment_1.pt")):
@@ -176,9 +218,66 @@ def _search(args) -> None:
     print("Total MCTS reward:", total)
 
 
+def _train(args) -> None:
+    import numpy as np
+    import torch.distributed as dist
+
+    from .config import ModelConfig, TrainerConfig, tasks_for_experiment
+    from .data import TrainingDataset
+    from .models import DecisionTransformer, init_dt_params
+    from .training import (Trainer, init_train_state, make_train_step,
+                           make_watch_grad_fn, maybe_initialize_distributed)
+    from .training.sharding import process_count, process_index
+    from .utils.convert import load_strict
+    from .utils.device import resolve_device
+
+    dev = maybe_initialize_distributed(resolve_device(args.device))
+    tasks, (min_rtg, max_rtg) = tasks_for_experiment(args.training_type)
+    cfg = ModelConfig(block_size=args.block_size, n_embeds=len(tasks),
+                      mode="flex" if args.training_type == "flexible"
+                      else "norm")
+    tcfg = TrainerConfig(batch_size=args.batch_size,
+                         max_epochs=args.max_epochs,
+                         save_every=args.save_every,
+                         checkpoint_dir=args.checkpoint_dir,
+                         log_wandb=bool(os.environ.get("WANDB_API_KEY")))
+    data_rng = np.random.default_rng(0)
+    dataset = TrainingDataset(
+        block_size=cfg.context_length, data_dir=args.data_dir,
+        action_dim=cfg.action_dim, state_file_path=args.state_file,
+        tasks=tasks, min_rtg=min_rtg, max_rtg=max_rtg, rng=data_rng,
+        preload=args.preload_data)
+    # --batch_size is per process; the global batch is batch_size times
+    # the number of processes.
+    n_proc, rank = process_count(), process_index()
+    max_steps = max((len(dataset) // n_proc) // tcfg.batch_size, 1) \
+        * tcfg.max_epochs
+    model = load_strict(DecisionTransformer(cfg),
+                        init_dt_params(cfg, tcfg.seed), "DT").to(dev)
+    os.makedirs(tcfg.checkpoint_dir, exist_ok=True)
+    trainer = Trainer(
+        train_step=make_train_step(args.dtype),
+        state=init_train_state(model, tcfg, max_steps), config=tcfg,
+        batches=lambda epoch: dataset.batches(
+            tcfg.batch_size, seed=tcfg.seed + epoch, shard_index=rank,
+            num_shards=n_proc),
+        checkpoint_dir=tcfg.checkpoint_dir, resume_from=args.resume,
+        async_save=args.async_save, keep_last=args.keep_last,
+        watch_grad_fn=make_watch_grad_fn(model), data_rng=data_rng)
+    try:
+        trainer.train()
+    finally:
+        dataset.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print("Training complete; last losses:", trainer.last_losses)
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    if args.mode == "mcts":
+    if args.mode == "train":
+        _train(args)
+    elif args.mode == "mcts":
         _search(args)
     else:
         _evaluate(args)

@@ -1,8 +1,8 @@
 """Configuration for the PyTorch/CUDA port.
 
 The port's own copy of the JAX package's ``config.py`` tables and the
-dataclasses its inference paths need (the port imports nothing of the JAX
-package). Values are identical to the JAX package's.
+dataclasses its inference and training paths need (the port imports
+nothing of the JAX package). Values are identical to the JAX package's.
 """
 from __future__ import annotations
 
@@ -39,6 +39,8 @@ class ModelConfig:
     n_blocks: int = 5
     action_dim: int = 3
     max_timestep: int = 30
+    dropout: float = 0.1         # attention, attention-output and MLP sites
+    embd_dropout: float = 0.1    # on the summed input embeddings
     mode: str = "norm"           # 'norm' (optimal) or 'flex'
     image_size: int = IMAGE_SIZE
     # The per-op forward's attention and LayerNorms run the hand-written
@@ -77,6 +79,26 @@ class MCTSConfig:
     max_timesteps: int = 30
     context_length: int = 6
     seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerConfig:
+    """Training hyperparameters (the reference's AdamW, clip, warmup and
+    cosine schedule)."""
+    learning_rate: float = 3e-4
+    betas: Tuple[float, float] = (0.9, 0.95)
+    weight_decay: float = 0.1
+    grad_norm_clipping: float = 1.0
+    batch_size: int = 48
+    max_epochs: int = 5
+    warmup_steps: int = 1250
+    lr_floor_mult: float = 0.1    # cosine decay floored at 0.1x base LR
+    save_every: int = 1           # checkpoint cadence (epochs)
+    seed: int = 0
+    checkpoint_dir: str = "checkpoints"
+    log_wandb: bool = False       # gated on the WANDB_API_KEY env var
+    watch_every: int = 1000       # param + grad histograms every N steps
+                                  # when wandb logs; 0 disables
 
 
 def tasks_for_experiment(training_type: str

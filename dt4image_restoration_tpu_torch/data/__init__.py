@@ -1,10 +1,11 @@
-from .datasets import (EvaluationDataset, EvaluationFlexibleDataset,
-                       EvaluationOptimalDataset, extract_task,
+from .datasets import (BATCH_KEYS, EvaluationDataset,
+                       EvaluationFlexibleDataset, EvaluationOptimalDataset,
+                       TrainingDataset, extract_task, gather_scale_u8,
                        minmax_normalize)
 from .synthetic import make_mat_record, radial_mask, shepp_logan, \
     write_eval_dir
 
-__all__ = ["EvaluationDataset", "EvaluationFlexibleDataset",
-           "EvaluationOptimalDataset", "extract_task", "make_mat_record",
-           "minmax_normalize", "radial_mask", "shepp_logan",
-           "write_eval_dir"]
+__all__ = ["BATCH_KEYS", "EvaluationDataset", "EvaluationFlexibleDataset",
+           "EvaluationOptimalDataset", "TrainingDataset", "extract_task",
+           "gather_scale_u8", "make_mat_record", "minmax_normalize",
+           "radial_mask", "shepp_logan", "write_eval_dir"]

@@ -13,8 +13,10 @@ the same semantics:
     positions; two-token (RTG, state) mode when ``actions`` is None;
   * per-key action rescale whose key order differs by mode.
 
-Inference only (no dropout). Two forwards over the same weights, as in the
-JAX package:
+Dropout at the JAX model's four sites (the summed input embeddings, the
+attention probabilities, the attention output, the MLP output) runs only in
+``model.train()``; every inference path runs the model in ``eval()``. Two
+forwards over the same weights, as in the JAX package:
 
   * the per-op forward, :meth:`DecisionTransformer.forward`
     (:func:`make_dt_apply`, :func:`make_dt_embed_apply`): module by module;
@@ -25,7 +27,8 @@ JAX package:
     and the final LayerNorm as one launch of kernel K3
     (:mod:`..ops.kernels.transformer`).
 
-Every kernel runs its plain PyTorch version on the CPU.
+Every kernel runs its plain PyTorch version on the CPU. Training runs the
+per-op forward without the kernels: K3, K4 and K5 have no backward.
 """
 from __future__ import annotations
 
@@ -72,6 +75,20 @@ class DTOutput:
     action_dict: Dict[str, torch.Tensor]  # key -> (B, T, 1)
 
 
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout at rate ``p`` when ``training``, with masks drawn
+    from ``generator`` (None: PyTorch's default generator). Rate 1 gives
+    zeros, as Flax's ``nn.Dropout`` does. A function, not a module: outside
+    training it costs the inference forwards one Python call a site."""
+    if not training or p == 0.0:
+        return x
+    if p == 1.0:
+        return torch.zeros_like(x)
+    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    return x * keep / (1.0 - p)
+
+
 class StateEncoder(nn.Module):
     """Conv stack for square observations -> embed_dim (NCHW flatten)."""
 
@@ -115,7 +132,8 @@ class LayerNorm(nn.Module):
 
 class Attention(nn.Module):
     """Causal multi-head attention with a fused QKV projection; kernel K4
-    when ``cfg.use_pallas`` and the module is not training."""
+    when ``cfg.use_pallas`` and the module is not training. Dropout on the
+    attention probabilities and on the output projection."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -124,6 +142,8 @@ class Attention(nn.Module):
         self.use_pallas = cfg.use_pallas
         self.qkv_proj = nn.Linear(e, 3 * e)
         self.o_proj = nn.Linear(e, e)
+        self.dropout = cfg.dropout
+        self.dropout_generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, e = x.shape
@@ -141,13 +161,16 @@ class Attention(nn.Module):
                                 device=x.device).tril()
             att = torch.softmax(att.masked_fill(~causal, float("-inf")),
                                 dim=-1)
-            y = att @ v
-        return self.o_proj(y.transpose(1, 2).reshape(b, t, e))
+            y = dropout(att, self.dropout, self.training,
+                        self.dropout_generator) @ v
+        return dropout(self.o_proj(y.transpose(1, 2).reshape(b, t, e)),
+                       self.dropout, self.training, self.dropout_generator)
 
 
 class Block(nn.Module):
-    """Pre-LN block: attention with a residual; the MLP output replaces
-    the stream (no residual), as in the reference model."""
+    """Pre-LN block: attention with a residual; the MLP output, after its
+    dropout, replaces the stream (no residual), as in the reference
+    model."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -157,10 +180,13 @@ class Block(nn.Module):
         self.ln2 = LayerNorm(e, cfg.use_pallas)
         self.fc = nn.Linear(e, 4 * e)
         self.fc_proj = nn.Linear(4 * e, e)
+        self.dropout = cfg.dropout
+        self.dropout_generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
-        return self.fc_proj(F.gelu(self.fc(self.ln2(x))))
+        return dropout(self.fc_proj(F.gelu(self.fc(self.ln2(x)))),
+                       self.dropout, self.training, self.dropout_generator)
 
 
 class DecisionTransformer(nn.Module):
@@ -179,8 +205,17 @@ class DecisionTransformer(nn.Module):
         self.layer_n = LayerNorm(e, cfg.use_pallas)
         self.predict_action = nn.Linear(e, cfg.action_dim)
         self.predict_rtg = nn.Linear(e, 1)
+        self.dropout_generator: Optional[torch.Generator] = None
         self._packed = None
         self._packed_key = None
+
+    def set_dropout_generator(self, generator: Optional[torch.Generator]
+                              ) -> None:
+        """Draw every dropout mask from ``generator`` (None: PyTorch's
+        default generator), so that a trainer can save and restore the
+        masks' random state."""
+        for m in (self, *self.blocks, *(blk.attn for blk in self.blocks)):
+            m.dropout_generator = generator
 
     def packed_weights(self) -> Dict[str, torch.Tensor]:
         """The block stack's weights in K3's layout (``PACK_KEYS``, and at
@@ -214,9 +249,13 @@ class DecisionTransformer(nn.Module):
         else:
             streams = (rtg_emb, state_emb)
         n = len(streams)
-        tokens = torch.stack(streams, dim=2).reshape(b, n * t,
-                                                     self.cfg.embed_dim)
-        return tokens + time_emb.repeat_interleave(n, dim=1)
+        e = self.cfg.embed_dim
+        tokens = torch.stack(streams, dim=2).reshape(b, n * t, e)
+        # Each timestep's embedding on its n tokens. An expand, whose
+        # backward is a plain sum, where repeat_interleave's backward adds
+        # with atomics on CUDA: training steps stay bitwise repeatable.
+        return tokens + time_emb.unsqueeze(2).expand(b, t, n, e).reshape(
+            b, n * t, e)
 
     def heads(self, x: torch.Tensor, three_token: bool) -> DTOutput:
         """Action and RTG heads on the final (B, n_streams * T, E) stream."""
@@ -236,8 +275,10 @@ class DecisionTransformer(nn.Module):
         (B, T, image_size**2), ignored when ``state_embeddings`` (B, T, E)
         is given; timesteps (B, T) or (B, T, 1); task (B, T); actions
         (B, T, action_dim) or None for the two-token (RTG, state) mode."""
-        x = self.embed(rtg, states, timesteps, task, actions,
-                       state_embeddings)
+        x = dropout(self.embed(rtg, states, timesteps, task, actions,
+                               state_embeddings),
+                    self.cfg.embd_dropout, self.training,
+                    self.dropout_generator)
         for block in self.blocks:
             x = block(x)
         return self.heads(self.layer_n(x), actions is not None)

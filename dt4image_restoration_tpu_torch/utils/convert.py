@@ -10,7 +10,8 @@ Two sources, each turned into a port ``state_dict``:
   * the reference's published PyTorch checkpoints (``unet-nm.pt``,
     ``model_experiment_{1,2}.pt``) and the ARNIQA hub checkpoint:
     :func:`unet_from_reference`, :func:`dt_from_reference`,
-    :func:`arniqa_from_hub`. Only key names change.
+    :func:`arniqa_from_hub`. Only key names change. :func:`dt_to_reference`
+    writes a port DT back in the reference's layout.
 
 Every converter is strict: a missing or unconsumed key raises.
 """
@@ -168,6 +169,44 @@ def dt_from_reference(state_dict: Mapping[str, Any]
                 break
         else:
             raise ValueError(f"unrecognized DT checkpoint key: {key}")
+    return sd
+
+
+# Port names -> reference names: the inverse of _DT_REF.
+_DT_TO_REF = [
+    (r"embed_(action|return)\.(.*)", r"embed_\1.0.\2"),
+    (r"state_encoder\.conv0\.(.*)", r"state_encoder.0.\1"),
+    (r"state_encoder\.conv1\.(.*)", r"state_encoder.2.\1"),
+    (r"state_encoder\.conv2\.(.*)", r"state_encoder.4.\1"),
+    (r"state_encoder\.dense\.(.*)", r"state_encoder.7.\1"),
+    (r"blocks\.(\d+)\.(ln1|ln2)\.(.*)", r"transformer.\1.\2.\3"),
+    (r"blocks\.(\d+)\.attn\.(qkv_proj|o_proj)\.(.*)",
+     r"transformer.\1.c_att.\2.\3"),
+    (r"blocks\.(\d+)\.(fc|fc_proj)\.(.*)", r"transformer.\1.mlp.\2.\3"),
+    (r"predict_action\.(.*)", r"predict_action.0.\1"),
+    (r"(time_embed|task_embed|layer_n|predict_rtg)\.(.*)", r"\1.\2"),
+]
+
+
+def dt_to_reference(state_dict: Mapping[str, Any], cfg: ModelConfig
+                    ) -> Dict[str, torch.Tensor]:
+    """Port DT state dict -> the reference's ``state_dict`` layout (the
+    inverse of :func:`dt_from_reference`), with the causal-mask
+    ``masking`` buffer of each attention block,
+    ``tril(ones(block_size, block_size)).view(1, 1, B, B)``, so that the
+    reference model loads it strictly. Values are float32 CPU copies."""
+    sd = {}
+    for key, v in state_dict.items():
+        for pat, repl in _DT_TO_REF:
+            if re.fullmatch(pat, key):
+                sd[re.sub(pat, repl, key)] = _t(v).cpu()
+                break
+        else:
+            raise ValueError(f"unrecognized port DT key: {key}")
+    mask = torch.ones(cfg.block_size, cfg.block_size).tril().view(
+        1, 1, cfg.block_size, cfg.block_size)
+    for i in range(cfg.n_blocks):
+        sd[f"transformer.{i}.c_att.masking"] = mask.clone()
     return sd
 
 

@@ -1,0 +1,132 @@
+"""Tracing and step timing (the port's copy of the JAX package's
+``utils/profiling.py``, on ``torch.profiler``).
+
+Usage:
+    with trace_if_enabled():          # honours DT4IR_TRACE_DIR
+        with annotate("train_step"):
+            run_workload()
+
+    timer = StepTimer(device)
+    for batch in ...:
+        with timer:
+            step(...)
+    print(timer.summary())
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from typing import Dict, Iterable, Iterator, List, Mapping, Optional
+
+import numpy as np
+import torch
+
+TRACE_ENV_VAR = "DT4IR_TRACE_DIR"
+TRACE_FILE = "trace.json"
+# Chrome-trace categories of the work a CUDA device runs.
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+@contextlib.contextmanager
+def trace_if_enabled(trace_dir: Optional[str] = None) -> Iterator[None]:
+    """Profile the block with ``torch.profiler`` (CPU activity, and CUDA
+    activity when a GPU is present) when a trace directory is given or
+    DT4IR_TRACE_DIR is set, and write its Chrome trace to
+    ``<trace_dir>/trace.json``; a no-op otherwise."""
+    trace_dir = trace_dir or os.environ.get(TRACE_ENV_VAR)
+    if not trace_dir:
+        yield
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(trace_dir, exist_ok=True)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(trace_dir, TRACE_FILE))
+
+
+def annotate(name: str) -> contextlib.AbstractContextManager:
+    """A named span inside an active trace (``record_function``)."""
+    return torch.profiler.record_function(name)
+
+
+def region_breakdown(events: Iterable[Mapping], region: str, top: int = 8
+                     ) -> Dict:
+    """Device time inside one annotated region of a Chrome trace
+    (``json.load(open(trace.json))["traceEvents"]``).
+
+    The region is the host span of ``annotate(region)``; the caller
+    synchronises the device inside it, so that the device work of the
+    region ends inside the span. Returns the span's wall ms, the device's
+    busy ms (the union of its kernel, copy and set intervals in the span),
+    the idle share of the span, and the ``top`` device ops by summed time
+    with their counts."""
+    events = list(events)
+    spans = [e for e in events if e.get("name") == region
+             and e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    if len(spans) != 1:
+        raise ValueError(f"{len(spans)} host spans named {region!r} in the "
+                         "trace; want one")
+    t0 = float(spans[0]["ts"])
+    t1 = t0 + float(spans[0]["dur"])
+    intervals, ops = [], {}
+    for e in events:
+        if e.get("cat") not in DEVICE_CATEGORIES or e.get("ph") != "X":
+            continue
+        a = max(float(e["ts"]), t0)
+        b = min(float(e["ts"]) + float(e["dur"]), t1)
+        if b <= a:
+            continue
+        intervals.append((a, b))
+        ms, n = ops.get(e["name"], (0.0, 0))
+        ops[e["name"]] = (ms + (b - a) / 1e3, n + 1)
+    busy, end = 0.0, t0
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    wall = t1 - t0
+    ranked = sorted(ops.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_ms": wall / 1e3, "device_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / wall if wall > 0 else None,
+            "device_ops": len(intervals),
+            "top_ops": [{"name": name[:120], "ms": ms, "count": n}
+                        for name, (ms, n) in ranked]}
+
+
+class StepTimer:
+    """Wall-clock step timer with a percentile summary.
+
+    On a CUDA device it synchronises the device when a step ends, so a
+    step's time includes the device work the step queued, not only the
+    host's time to queue it."""
+
+    def __init__(self, device=None) -> None:
+        self.times: List[float] = []
+        self._t0 = 0.0
+        self._sync = device is not None and torch.device(device).type == \
+            "cuda"
+        self._device = device
+
+    def __enter__(self) -> "StepTimer":
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._sync:
+            torch.cuda.synchronize(self._device)
+        self.times.append(time.perf_counter() - self._t0)
+
+    def summary(self) -> dict:
+        if not self.times:
+            return {"steps": 0}
+        arr = np.asarray(self.times)
+        return {
+            "steps": len(arr),
+            "mean_s": float(arr.mean()),
+            "p50_s": float(np.percentile(arr, 50)),
+            "p95_s": float(np.percentile(arr, 95)),
+            "total_s": float(arr.sum()),
+        }

@@ -457,3 +457,157 @@ def test_verbs_on_card_at_long_windows(dev, tmp_path, monkeypatch, capsys,
                if ln.startswith(("Average reward", "MCTS Reward:",
                                  "Total MCTS reward:"))]
     assert numbers and all(np.isfinite(numbers)), r.out
+
+
+# --- training ------------------------------------------------------------
+
+def _train_batch(rng, b=8, t=6):
+    """A batch of the published shapes whose rows keep 6 - i % 4 valid
+    timesteps."""
+    masks = (np.arange(t)[None, :] < (t - np.arange(b) % 4)[:, None]
+             ).astype(np.float32)[..., None]
+    return {"states": rng.uniform(0, 1, (b, t, 128 * 128)).astype(np.float32)
+            * masks,
+            "actions": rng.uniform(0, 1, (b, t, 3)).astype(np.float32)
+            * masks,
+            "rtg": rng.uniform(0, 1, (b, t, 1)).astype(np.float32) * masks,
+            "traj_masks": masks,
+            "timesteps": np.broadcast_to(np.arange(t, dtype=np.int32)[
+                None, :, None], (b, t, 1)).copy(),
+            "task": rng.integers(0, 9, (b, t)).astype(np.int32)}
+
+
+def _train_run(device, batches, tcfg, **cfg_kw):
+    from dt4image_restoration_tpu_torch.training import (init_train_state,
+                                                         make_train_step,
+                                                         shard_batch)
+    cfg = ModelConfig(**cfg_kw)
+    model = DecisionTransformer(cfg)
+    model.load_state_dict(init_dt_params(cfg, seed=0))
+    state = init_train_state(model.to(device), tcfg, 10)
+    step = make_train_step()
+    losses = [float(step(state, shard_batch(b, device))) for b in batches]
+    return losses, {n: p.detach().cpu() for n, p in model.named_parameters()}
+
+
+def test_train_steps_on_card_match_cpu(dev):
+    """Three updates at the published widths (dropout off, warmup 2) on
+    the card and on the CPU: losses within 1e-5 relative, every parameter
+    tensor within 2e-4 (norm of the error over the tensor's norm; and
+    largest error over its largest value, but for the QKV biases, whose
+    key thirds have gradients of pure rounding noise)."""
+    from dt4image_restoration_tpu_torch.config import TrainerConfig
+    rng = np.random.default_rng(8)
+    batches = [_train_batch(rng) for _ in range(3)]
+    tcfg = TrainerConfig(warmup_steps=2)
+    kernels.reset_launch_counts()
+    gpu = _train_run(dev, batches, tcfg, dropout=0.0, embd_dropout=0.0)
+    assert not any(kernels.launch_counts().values())
+    cpu = _train_run("cpu", batches, tcfg, dropout=0.0, embd_dropout=0.0)
+    np.testing.assert_allclose(gpu[0], cpu[0], rtol=1e-5)
+    for name, ref in cpu[1].items():
+        got, ref = gpu[1][name].double(), ref.double()
+        assert (got - ref).norm() <= 2e-4 * ref.norm(), name
+        if not name.endswith("qkv_proj.bias"):
+            assert (got - ref).abs().max() <= 2e-4 * ref.abs().max(), name
+
+
+def test_train_resume_on_card_equals_straight_run(dev, tmp_path):
+    """Two updates, a stop request (the SIGTERM path's save), a Trainer
+    resuming from state_latest.pt on other initial weights, two more
+    updates: the weights equal four straight updates (dropout on, cuDNN's
+    deterministic algorithms)."""
+    from dt4image_restoration_tpu_torch.config import TrainerConfig
+    from dt4image_restoration_tpu_torch.training import (Trainer,
+                                                         init_train_state,
+                                                         make_train_step)
+    rng = np.random.default_rng(9)
+    batches = [_train_batch(rng) for _ in range(4)]
+    tcfg = TrainerConfig(max_epochs=1)
+
+    def run(name, data, seed=0, stop_after=None, **kw):
+        cfg = ModelConfig()
+        model = DecisionTransformer(cfg)
+        model.load_state_dict(init_dt_params(cfg, seed=seed))
+        step, calls = make_train_step(), []
+
+        def counted(state, batch):
+            calls.append(1)
+            loss = step(state, batch)
+            if len(calls) == stop_after:
+                trainer.request_stop()
+            return loss
+
+        trainer = Trainer(train_step=counted,
+                          state=init_train_state(model.to(dev), tcfg, 4),
+                          config=tcfg, batches=lambda e: iter(data),
+                          checkpoint_dir=str(tmp_path / name), **kw)
+        trainer.train()
+        return trainer
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        straight = run("straight", batches)
+        first = run("first", batches, stop_after=2)
+        resumed = run("resumed", batches[2:], seed=1, resume_from=str(
+            tmp_path / "first" / "state_latest.pt"))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert (first.state.step, resumed.state.step) == (2, 4)
+    ref = dict(straight.state.model.named_parameters())
+    for name, p in resumed.state.model.named_parameters():
+        torch.testing.assert_close(p, ref[name], rtol=1e-6, atol=0)
+
+
+def test_step_timer_waits_for_the_device(dev):
+    """On CUDA a step's time includes the device work it queued."""
+    from dt4image_restoration_tpu_torch.utils.profiling import StepTimer
+    timer = StepTimer(dev)
+    torch.cuda.synchronize()
+    with timer:
+        torch.cuda._sleep(200_000_000)     # ~0.1 s of device spinning
+    assert timer.times[0] > 0.03
+    assert set(timer.summary()) == {"steps", "mean_s", "p50_s", "p95_s",
+                                    "total_s"}
+
+
+def test_trace_if_enabled_writes_device_trace(dev, tmp_path):
+    import json as _json
+
+    from dt4image_restoration_tpu_torch.utils.profiling import (
+        TRACE_FILE, annotate, region_breakdown, trace_if_enabled)
+    x = torch.randn((512, 512), device=dev)
+    with trace_if_enabled(str(tmp_path)):
+        with annotate("matmuls"):
+            for _ in range(4):
+                x = x @ x / 512
+            torch.cuda.synchronize()
+    with open(tmp_path / TRACE_FILE) as f:
+        events = _json.load(f)["traceEvents"]
+    region = region_breakdown(events, "matmuls")
+    assert region["device_ops"] >= 4 and region["device_ms"] > 0
+    assert 0 <= region["device_idle_share"] < 1
+
+
+def test_bfloat16_train_step_on_card(dev):
+    """--dtype bfloat16 on the card: forward and loss under autocast, the
+    loss within 2e-2 of the float32 loss (bfloat16 keeps 8 bits of
+    mantissa); weights and gradients stay float32."""
+    from dt4image_restoration_tpu_torch.config import TrainerConfig
+    from dt4image_restoration_tpu_torch.training import (init_train_state,
+                                                         make_train_step,
+                                                         shard_batch)
+    from dt4image_restoration_tpu_torch.training.trainer import loss_fn
+    cfg = ModelConfig(dropout=0.0, embd_dropout=0.0)
+    model = DecisionTransformer(cfg)
+    model.load_state_dict(init_dt_params(cfg, seed=2))
+    state = init_train_state(model.to(dev), TrainerConfig(), 10)
+    batch = shard_batch(_train_batch(np.random.default_rng(10)), dev)
+    with torch.no_grad():
+        f32 = float(loss_fn(model.train(), batch))
+    loss = float(make_train_step("bfloat16")(state, batch))
+    assert abs(loss - f32) <= 2e-2 * abs(f32)
+    assert loss != f32                  # bfloat16 products did run
+    assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+               for p in model.parameters())
