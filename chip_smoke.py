@@ -16,9 +16,20 @@ prints one JSON line per phase. The paths:
     of 9 synthetic eval directories, with the fused policy forward (K1, K2,
     K3);
   * mcts: the PUCB tree search of 16 of those slices, 30 rounds each, with
-    the per-op policy forward (K1, K2, K4, K5) and the proxy scorer, then
-    one tree on the card and on the CPU at --block_size 18 and 36; then
-    ARNIQA scores of 16 slices on the card and on the CPU;
+    the per-op policy forward (K1, K2, K4, K5) and the proxy scorer, on
+    the host-tree backend and on the device-resident one (``DeviceMCTS``,
+    the ``mcts`` verb's default, with float32 and bfloat16 node storage):
+    tree-iterations/s, host syncs per round and peak device memory of
+    each; then one tree on the card and on the CPU at --block_size 18 and
+    36, and one tree on both backends on the card and on the device
+    backend on the CPU with a quantized scorer; then ARNIQA scores of 16
+    slices on the card and on the CPU;
+  * serve: ``RestorationService`` at the traffic of
+    benchmarks/serving_bench.py: policy mode at batch 16 (a burst of 64
+    requests at pipeline_depth 1 and 2, then 32 concurrent clients x 8
+    requests: requests/s, p50/p95/p99 latency, padded-slot share), fixed
+    mode at batch 16 (64 requests) and mcts mode at batch 8 (8 requests,
+    30 rounds), each held against a direct call on the same batch;
   * train: ``Trainer.train()`` of the Decision Transformer at the published
     widths with the default TrainerConfig (batch 48, 6-timestep windows of
     128x128 states), 2 epochs of 25 seeded batches, asynchronous
@@ -27,8 +38,9 @@ prints one JSON line per phase. The paths:
     resume and 2 more against 4 straight updates. Training runs none of
     K1-K5 (they have no backward);
   * trace: ``torch.profiler`` (``utils/profiling.py``) over one train step
-    at B=48 and one ADMM iteration at B=63 and at B=1: device ms, idle
-    share and the largest device ops of each.
+    at B=48, one ADMM iteration at B=63 and at B=1, one search round of 16
+    trees on each backend and one served policy batch of 16: device ms,
+    idle share and the largest device ops of each.
 
 K1 is timed at the batches of these paths (1, 16, 63 and 96 slices), K3
 at one slice and at 63, both bounded by the 3xTF32 tensor-core rate; K3 is
@@ -66,6 +78,10 @@ MU, SIGMA_D = 0.5, 15.0 / 255.0       # the fixed-parameter rollout's action
 EVAL_BATCH = 63                        # 9 directories x 7 images
 SEARCH_BATCH = 16                      # trees per search chunk (CLI default)
 SEARCH_RTG = 5.0
+SERVE_BATCH, SERVE_BURST = 16, 64       # benchmarks/serving_bench.py
+SERVE_CLIENTS, SERVE_PER_CLIENT = 32, 8
+SERVE_MCTS_BATCH = 8
+SERVE_RTG, SERVE_TASK = 0.6, 2
 EXPANSION_BATCH = 96                   # the search's 6-slot expansion
 TRAIN_BATCH, TRAIN_T = 48, 6           # TrainerConfig's batch, 18 tokens
 TRAIN_STEPS, TRAIN_EPOCHS = 25, 2      # batches an epoch, epochs
@@ -562,21 +578,63 @@ def search_records(dirs):
 
 
 def _search(torch, device, ckpt_dir, mcts_cfg, record_trace=False,
-            block_size=18):
+            block_size=18, backend="host", value=None, **kw):
     """The CLI's search (``mcts`` verb) on random weights: the per-op
-    policy with K4 and K5, the proxy scorer."""
+    policy with K4 and K5, the proxy scorer (or ``value``, a batched
+    scorer, with its per-image twin for the host backend), on the
+    host-tree backend or the device-resident one."""
     from dt4image_restoration_tpu_torch.config import ModelConfig
-    from dt4image_restoration_tpu_torch.inference import BatchedMCTS
-    from dt4image_restoration_tpu_torch.models import proxy_value_fn
+    from dt4image_restoration_tpu_torch.inference import (BatchedMCTS,
+                                                          DeviceMCTS)
+    from dt4image_restoration_tpu_torch.models import (
+        proxy_value_fn, proxy_value_fn_batched)
     from dt4image_restoration_tpu_torch.utils.loaders import load_denoiser
     cfg = ModelConfig(block_size=block_size, n_embeds=9, mode="norm",
                       use_pallas=True)
-    return BatchedMCTS(
+    value_fn = proxy_value_fn if value is None else host_twin(torch, value)
+    common = dict(
         dt=_load_policy(cfg, ckpt_dir, device),
         denoise=load_denoiser(os.path.join(ckpt_dir, "unet-nm.pt"),
                               device=device),
-        model_cfg=cfg, cfg=mcts_cfg, value_fn=proxy_value_fn,
+        model_cfg=cfg, cfg=mcts_cfg, value_fn=value_fn,
         record_trace=record_trace, device=device)
+    if backend == "host":
+        return BatchedMCTS(**common)
+    return DeviceMCTS(value_fn_batched=value or proxy_value_fn_batched,
+                      **common, **kw)
+
+
+def quantized_value(x):
+    """A scorer of (B, H, W) images that float reordering between devices
+    and backends cannot move: the mean, quantized."""
+    return (x.mean(dim=(1, 2)) * 1e3).round() / 10.0
+
+
+def host_twin(torch, batched):
+    """The host search's (1, H, W) -> float twin of a batched scorer."""
+    import numpy as np
+
+    def value(x):
+        x = torch.as_tensor(np.asarray(x, np.float32))
+        return float(batched(x.reshape(1, *x.shape[-2:]))[0])
+    return value
+
+
+def compare_searches(runs, what):
+    """Traces, priors and rewards of one-tree searches against the first."""
+    (r0, t0), out = runs[0], []
+    key = ("iter", "time", "edge", "index")
+    trace = [[e[k] for k in key] for e in t0]
+    for r1, t1 in runs[1:]:
+        out.append({
+            "against": what, "trace": trace,
+            "same_trace": trace == [[e[k] for k in key] for e in t1],
+            "prior_max_rel_diff": max(
+                abs(a - b) / abs(b) for x, y in zip(t0, t1)
+                for a, b in zip(x["probs"], y["probs"])),
+            "reward_gpu_db": r0, "reward_other_db": r1,
+            "reward_diff_db": abs(r0 - r1)})
+    return out
 
 
 def search_check(torch, dev, ckpt_dir, record, seed, iterations,
@@ -592,62 +650,129 @@ def search_check(torch, dev, ckpt_dir, record, seed, iterations,
                     block_size=block_size)
         with contextlib.redirect_stdout(printed):
             runs.append((m.run(record, seed=seed), m.traces[0]))
-    (r_gpu, t_gpu), (r_cpu, t_cpu) = runs
-    key = ("iter", "time", "edge", "index")
-    trace = [[e[k] for k in key] for e in t_gpu]
-    return {"block_size": block_size, "iterations": iterations,
-            "trace": trace,
-            "same_trace": trace == [[e[k] for k in key] for e in t_cpu],
-            "prior_max_rel_diff": max(
-                abs(a - b) / abs(b) for x, y in zip(t_gpu, t_cpu)
-                for a, b in zip(x["probs"], y["probs"])),
-            "reward_gpu_db": r_gpu, "reward_cpu_db": r_cpu,
-            "reward_diff_db": abs(r_gpu - r_cpu)}
+    (check,) = compare_searches(runs, "CPU")
+    return {"block_size": block_size, "iterations": iterations, **check}
 
 
-def phase_mcts(torch, dev, ckpt_dir, dirs, kernels):
-    """The tree search of 16 slices (one --search_batch chunk) with the
-    default MCTSConfig (30 rounds, 5 children, 30 timesteps), launches
-    counted over it alone; then one tree on the card and on the CPU, for 3
-    rounds at --block_size 18 and for 2 at --block_size 36 (36-token
-    windows, past the fused kernel K3's 32)."""
+def device_search_checks(torch, dev, ckpt_dir, record, seed, printed):
+    """One tree, 3 rounds, the quantized scorer: the device backend on the
+    card against the host backend on the card and against itself on the
+    CPU."""
     from dt4image_restoration_tpu_torch.config import MCTSConfig
-    records, seeds = search_records(dirs)
-    mcts_cfg = MCTSConfig()
-    mcts = _search(torch, dev, ckpt_dir, mcts_cfg)
-    printed = io.StringIO()   # the search's "MCTS Reward:" lines
+    runs = []
+    for backend, device in (("device", dev), ("host", dev),
+                            ("device", "cpu")):
+        m = _search(torch, device, ckpt_dir, MCTSConfig(iterations=3),
+                    record_trace=True, backend=backend,
+                    value=quantized_value)
+        with contextlib.redirect_stdout(printed):
+            runs.append((m.run(record, seed=seed), m.traces[0]))
+    return (compare_searches(runs[:2], "host backend on the card")
+            + compare_searches(runs[::2], "device backend on the CPU"))
+
+
+def count_syncs(torch, fn):
+    """Host syncs ``fn`` makes on the card, as PyTorch's sync debug mode
+    reports them (one warning per synchronising call)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def timed_search(torch, mcts, records, seeds, kernels, printed):
+    """One search of ``records``, launches counted over it alone: (rewards,
+    wall s, launches, peak device memory MB)."""
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(printed):
         rewards = mcts.run_batch(records, seeds=seeds)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    return (rewards, wall, kernels.launch_counts(),
+            torch.cuda.max_memory_allocated() / 2 ** 20)
+
+
+def phase_mcts(torch, dev, ckpt_dir, dirs, kernels):
+    """The tree search of 16 slices (one --search_batch chunk) with the
+    default MCTSConfig (30 rounds, 5 children, 30 timesteps) on the host
+    backend and on the device backend at float32 and bfloat16 node
+    storage, launches counted over each search alone; host syncs per round
+    of each backend over rounds 1 and 2 of the 16 trees; then one tree on
+    the card and on the CPU, for 3 rounds at --block_size 18 and for 2 at
+    --block_size 36 (36-token windows, past the fused kernel K3's 32), and
+    the device backend's checks. Returns the launches of the host and
+    device searches."""
+    from dt4image_restoration_tpu_torch.config import MCTSConfig
+    records, seeds = search_records(dirs)
+    mcts_cfg = MCTSConfig()
+    printed = io.StringIO()   # the search's "MCTS Reward:" lines
+    backends = {}
+    for name, kw in (("host", dict(backend="host")),
+                     ("device", dict(backend="device")),
+                     ("device_bf16", dict(backend="device",
+                                          node_dtype="bfloat16"))):
+        mcts = _search(torch, dev, ckpt_dir, mcts_cfg, **kw)
+        rewards, wall, counts, peak = timed_search(torch, mcts, records,
+                                                   seeds, kernels, printed)
+        # Syncs of rounds 1 and 2: a 3-round search's less a 1-round
+        # one's, so that the set-up of the trees does not count.
+        syncs = []
+        for rounds in (1, 3):
+            short = _search(torch, dev, ckpt_dir,
+                            MCTSConfig(iterations=rounds), **kw)
+            with contextlib.redirect_stdout(printed):
+                syncs.append(count_syncs(torch, lambda: short.run_batch(
+                    records, seeds=seeds)))
+        backends[name] = {
+            "wall_s": wall, "tree_iterations_per_s": len(records)
+            * mcts_cfg.iterations / wall,
+            "mean_best_psnr_db": sum(rewards) / len(rewards),
+            "rewards": rewards,
+            "host_syncs_per_round": (syncs[1] - syncs[0]) / 2,
+            "host_syncs_set_up_and_round_0": syncs[0],
+            "peak_memory_mb": peak, "launches": counts}
+        if len(rewards) != SEARCH_BATCH \
+                or not all(map(math.isfinite, rewards)):
+            raise AssertionError(f"{name} search returned {rewards}")
 
     checks = [search_check(torch, dev, ckpt_dir, records[0], seeds[0], 3,
                            18, printed),
               search_check(torch, dev, ckpt_dir, records[0], seeds[0], 2,
                            36, printed)]
-    out = {"phase": "mcts", "trees": len(records),
-           "iterations": mcts_cfg.iterations,
+    device_checks = device_search_checks(torch, dev, ckpt_dir, records[0],
+                                         seeds[0], printed)
+    out = {"phase": "mcts", "nvidia_smi": nvidia_smi(),
+           "trees": len(records), "iterations": mcts_cfg.iterations,
            "n_children": mcts_cfg.n_children,
-           "max_timesteps": mcts_cfg.max_timesteps, "wall_s": wall,
-           "tree_iterations_per_s": len(records) * mcts_cfg.iterations
-           / wall,
-           "mean_best_psnr_db": sum(rewards) / len(rewards),
-           "launches": counts, "checks": checks}
+           "max_timesteps": mcts_cfg.max_timesteps,
+           "wall_s": backends["host"]["wall_s"],
+           "tree_iterations_per_s":
+               backends["host"]["tree_iterations_per_s"],
+           "mean_best_psnr_db": backends["host"]["mean_best_psnr_db"],
+           "launches": backends["host"]["launches"],
+           "backends": backends, "checks": checks,
+           "device_checks": device_checks}
     emit(out)
-    if len(rewards) != SEARCH_BATCH \
-            or not all(map(math.isfinite, rewards)):
-        raise AssertionError(f"search returned {rewards}")
     for c in checks:
         if not c["same_trace"] or c["prior_max_rel_diff"] > 1e-4 \
                 or c["reward_diff_db"] > 0.05:
             raise AssertionError(f"the search on the card disagrees with "
                                  f"the CPU at --block_size "
                                  f"{c['block_size']}")
-    return counts
+    for c in device_checks:
+        if not c["same_trace"] or c["prior_max_rel_diff"] > 1e-4 \
+                or c["reward_diff_db"] > 0.05:
+            raise AssertionError(f"the device search on the card disagrees "
+                                 f"with the {c['against']}")
+    return backends["host"]["launches"], backends["device"]["launches"]
 
 
 def phase_arniqa(torch, dev, dirs):
@@ -684,6 +809,226 @@ def phase_arniqa(torch, dev, dirs):
         raise AssertionError(f"ARNIQA on the card differs from the CPU by "
                              f"{diff}")
     return out
+
+
+def serve_requests(n, offset=0):
+    """``n`` synthetic 128x128 requests (seeds offset..offset+n-1), as
+    benchmarks/serving_bench.py builds them."""
+    from dt4image_restoration_tpu_torch.data import make_mat_record
+    from dt4image_restoration_tpu_torch.serving import RestorationRequest
+    return [RestorationRequest(mat=make_mat_record(size=128, seed=i),
+                               rtg=SERVE_RTG, task=SERVE_TASK)
+            for i in range(offset, offset + n)]
+
+
+def _service(torch, dev, ckpt_dir, mode, **kw):
+    """A RestorationService on the published widths' random weights."""
+    from dt4image_restoration_tpu_torch.config import ModelConfig
+    from dt4image_restoration_tpu_torch.serving import RestorationService
+    from dt4image_restoration_tpu_torch.utils.loaders import load_denoiser
+    cfg = ModelConfig(block_size=18, n_embeds=9, mode="norm",
+                      use_pallas=True)
+    return RestorationService(
+        denoise=load_denoiser(os.path.join(ckpt_dir, "unet-nm.pt"),
+                              device=dev),
+        dt=_load_policy(cfg, ckpt_dir, dev), mode=mode, max_timesteps=30,
+        device=dev, **kw)
+
+
+def _served(svc, requests, timeout=600):
+    """Submit every request, wait for each; (results, wall s). A failed or
+    cancelled future raises."""
+    t0 = time.perf_counter()
+    futs = [svc.submit(r) for r in requests]
+    results = [f.result(timeout=timeout) for f in futs]
+    return results, time.perf_counter() - t0
+
+
+def _clients(svc, requests, per_client, timeout=600):
+    """One thread a request, each submitting it ``per_client`` times in
+    turn: (latencies ms, wall s, errors)."""
+    import threading
+    lat, errors, lock = [], [], threading.Lock()
+
+    def client(req):
+        for _ in range(per_client):
+            t0 = time.perf_counter()
+            try:
+                svc.submit(req).result(timeout=timeout)
+            except Exception as exc:   # reported, and the run fails
+                with lock:
+                    errors.append(repr(exc))
+                return
+            with lock:
+                lat.append(1e3 * (time.perf_counter() - t0))
+
+    threads = [threading.Thread(target=client, args=(r,)) for r in requests]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout)
+    if any(t.is_alive() for t in threads):
+        errors.append("a client did not finish")
+    return lat, time.perf_counter() - t0, errors
+
+
+def _direct_batch(torch, dev, ckpt_dir, requests, mode):
+    """The direct calls the service wraps, on the same (live) batch:
+    (images (n, H, W), psnr (n,), episode lengths (n,))."""
+    import numpy as np
+
+    from dt4image_restoration_tpu_torch.config import ModelConfig
+    from dt4image_restoration_tpu_torch.env import (
+        compute_reward, fixed_param_rollout, reset_from_mat)
+    from dt4image_restoration_tpu_torch.inference import (
+        greedy_rollout, initial_policy_setup, policy_forward)
+    from dt4image_restoration_tpu_torch.models import (make_dt_embed_apply,
+                                                       make_state_encode)
+    from dt4image_restoration_tpu_torch.utils.loaders import load_denoiser
+    den = load_denoiser(os.path.join(ckpt_dir, "unet-nm.pt"), device=dev)
+    mats = {k: np.concatenate([np.asarray(r.mat[k]) for r in requests])
+            for k in ("x0", "y0", "mask", "gt")}
+    mats["x0"] = np.clip(mats["x0"], 0, None)
+    env = reset_from_mat(mats, device=dev)
+    n = len(requests)
+    with torch.no_grad():
+        if mode == "fixed":
+            final, _ = fixed_param_rollout(den, env, MU, SIGMA_D, 30)
+            ep = torch.full((n,), 30)
+            reward = compute_reward(final)
+        else:
+            cfg = ModelConfig(block_size=18, n_embeds=9, mode="norm",
+                              use_pallas=True)
+            dt = _load_policy(cfg, ckpt_dir, dev)
+            apply = policy_forward(dt, cfg)
+            encode = make_state_encode(dt)
+            x0 = torch.from_numpy(np.stack(
+                [np.asarray(r.mat["x0"], np.float32)[..., 0].reshape(-1)
+                 for r in requests])).to(dev)
+            bufs, _, action, rtg = initial_policy_setup(
+                apply, cfg, x0, torch.full((n,), SERVE_RTG, device=dev),
+                torch.full((n,), SERVE_TASK, device=dev), 30, encode=encode)
+            final, reward, ep, _ = greedy_rollout(
+                apply, den, cfg, env, bufs, action, rtg, 30, encode=encode,
+                dt_embed_apply=make_dt_embed_apply(apply))
+    return (final.x[:, 0].cpu().numpy(), reward[:, 0].cpu().numpy(),
+            ep.cpu().numpy())
+
+
+def phase_serve(torch, dev, ckpt_dir, kernels):
+    """RestorationService in its three modes at the traffic of
+    benchmarks/serving_bench.py, each mode held against a direct call on
+    the same batch. Returns each mode's launches."""
+    import numpy as np
+    paths, out = {}, {"phase": "serve", "nvidia_smi": nvidia_smi()}
+    failed = []
+
+    def check_stats(name, svc):
+        st = svc.stats()
+        out[f"{name}_stats"] = st
+        if st["failed"] or st["cancelled"]:
+            failed.append(f"{name}: {st}")
+
+    # Policy mode: a burst at pipeline_depth 1 and 2, then the clients.
+    burst = serve_requests(SERVE_BURST)
+    kernels.reset_launch_counts()
+    for depth in (1, 2):
+        svc = _service(torch, dev, ckpt_dir, "policy",
+                       batch_size=SERVE_BATCH, pipeline_depth=depth)
+        try:
+            _served(svc, burst[:SERVE_BATCH])          # warm
+            results, wall = _served(svc, burst)
+            out[f"policy_burst_requests_per_s_depth{depth}"] = \
+                SERVE_BURST / wall
+            if depth == 1:
+                first = results[:SERVE_BATCH]
+                st0 = svc.stats()
+                lat, wall, errors = _clients(
+                    svc, serve_requests(SERVE_CLIENTS), SERVE_PER_CLIENT)
+                st1 = svc.stats()
+                failed += errors
+                p50, p95, p99 = np.percentile(lat, [50, 95, 99])
+                batches = st1["batches"] - st0["batches"]
+                out.update({
+                    "policy_clients": SERVE_CLIENTS,
+                    "policy_requests_per_client": SERVE_PER_CLIENT,
+                    "policy_clients_requests_per_s": len(lat) / wall,
+                    "policy_p50_ms": float(p50), "policy_p95_ms": float(p95),
+                    "policy_p99_ms": float(p99),
+                    "policy_clients_batches": batches,
+                    "policy_clients_padded_share":
+                        (st1["padded_slots"] - st0["padded_slots"])
+                        / (batches * SERVE_BATCH)})
+        finally:
+            svc.close(timeout=600)
+        check_stats(f"policy_depth{depth}", svc)
+    paths["serve_policy"] = kernels.launch_counts()
+    images, psnr, eps = _direct_batch(torch, dev, ckpt_dir,
+                                      burst[:SERVE_BATCH], "policy")
+    out["policy_check_episode_len_equal"] = \
+        [r.episode_len for r in first] == eps.tolist()
+    out["policy_check_image_max_abs_diff"] = float(max(
+        np.abs(r.image - np.clip(images[i], 0, 1)).max()
+        for i, r in enumerate(first)))
+
+    # Fixed mode: 64 requests at batch 16.
+    kernels.reset_launch_counts()
+    svc = _service(torch, dev, ckpt_dir, "fixed", batch_size=SERVE_BATCH)
+    try:
+        results, wall = _served(svc, burst)
+    finally:
+        svc.close(timeout=600)
+    check_stats("fixed", svc)
+    paths["serve_fixed"] = kernels.launch_counts()
+    out["fixed_requests_per_s"] = SERVE_BURST / wall
+    images, psnr, eps = _direct_batch(torch, dev, ckpt_dir,
+                                      burst[:SERVE_BATCH], "fixed")
+    out["fixed_check_image_max_abs_diff"] = float(max(
+        np.abs(r.image - np.clip(images[i], 0, 1)).max()
+        for i, r in enumerate(results[:SERVE_BATCH])))
+    out["fixed_check_psnr_max_abs_diff"] = float(max(
+        abs(r.psnr_db - psnr[i]) for i, r in enumerate(
+            results[:SERVE_BATCH])))
+
+    # Mcts mode: 8 requests at batch 8, 30 rounds, against run_batch.
+    from dt4image_restoration_tpu_torch.config import MCTSConfig
+    reqs = burst[:SERVE_MCTS_BATCH]
+    kernels.reset_launch_counts()
+    svc = _service(torch, dev, ckpt_dir, "mcts", batch_size=SERVE_MCTS_BATCH)
+    try:
+        results, wall = _served(svc, reqs)
+    finally:
+        svc.close(timeout=600)
+    check_stats("mcts", svc)
+    paths["serve_mcts"] = kernels.launch_counts()
+    out["mcts_requests_per_s"] = SERVE_MCTS_BATCH / wall
+    out["mcts_wall_s"] = wall
+    direct = _search(torch, dev, ckpt_dir,
+                     MCTSConfig(max_timesteps=30), backend="device")
+    recs = []
+    for r in reqs:
+        mat = {k: np.asarray(v) for k, v in r.mat.items()}
+        mat["x0"] = np.clip(mat["x0"], 0, None)
+        recs.append(((None, np.float32(r.rtg), None, np.int32(r.task)), mat))
+    want = direct.run_batch(recs, seeds=[direct.cfg.seed] * len(recs),
+                            detailed=True, verbose=False)
+    out["mcts_check_rewards_equal"] = \
+        [r.psnr_db for r in results] == [w["reward"] for w in want]
+    out["mcts_mean_psnr_db"] = sum(r.psnr_db for r in results) / len(results)
+    out["launches"] = paths
+    emit(out)
+    if failed:
+        raise AssertionError(f"the service failed requests: {failed}")
+    if not (out["policy_check_episode_len_equal"]
+            and out["policy_check_image_max_abs_diff"] <= 1e-5):
+        raise AssertionError("policy mode disagrees with greedy_rollout")
+    if not (out["fixed_check_image_max_abs_diff"] <= 1e-5
+            and out["fixed_check_psnr_max_abs_diff"] <= 1e-4):
+        raise AssertionError("fixed mode disagrees with fixed_param_rollout")
+    if not out["mcts_check_rewards_equal"]:
+        raise AssertionError("mcts mode disagrees with DeviceMCTS.run_batch")
+    return paths
 
 
 def train_batches(n: int, seed: int = 0):
@@ -871,10 +1216,12 @@ def phase_train(torch, dev, tmp, kernels):
     return counts
 
 
-def phase_trace(torch, dev, ckpt_dir, tmp):
-    """One train step (B=48) and one ADMM iteration at B=63 and at B=1
-    under ``torch.profiler``, each region synchronised at both ends and
-    run once untraced first."""
+def phase_trace(torch, dev, ckpt_dir, tmp, dirs):
+    """One train step (B=48), one ADMM iteration at B=63 and at B=1 and one
+    served policy batch (B=16) under ``torch.profiler``, each region
+    synchronised at both ends and run once untraced first; then round 1
+    (the second round) of a search of 16 trees on each backend, each
+    backend in a trace of its own."""
     from dt4image_restoration_tpu_torch.config import TrainerConfig
     from dt4image_restoration_tpu_torch.data import make_mat_record
     from dt4image_restoration_tpu_torch.env import admm_step, reset_from_mat
@@ -882,8 +1229,10 @@ def phase_trace(torch, dev, ckpt_dir, tmp):
                                                          make_train_step,
                                                          shard_batch)
     from dt4image_restoration_tpu_torch.utils.loaders import load_denoiser
+    from dt4image_restoration_tpu_torch.config import MCTSConfig
     from dt4image_restoration_tpu_torch.utils.profiling import (
-        TRACE_FILE, annotate, region_breakdown, trace_if_enabled)
+        SEARCH_ROUND, TRACE_FILE, annotate, region_breakdown,
+        trace_if_enabled)
 
     tcfg = TrainerConfig()
     state = init_train_state(_train_model(torch, dev), tcfg, 100)
@@ -895,23 +1244,48 @@ def phase_trace(torch, dev, ckpt_dir, tmp):
     many = reset_from_mat({k: v.repeat(EVAL_BATCH, axis=0)
                            for k, v in rec.items()}, device=dev)
     action = {"T": 0.0, "mu": MU, "sigma_d": SIGMA_D}
+    svc = _service(torch, dev, ckpt_dir, "policy", batch_size=SERVE_BATCH)
+    reqs = serve_requests(SERVE_BATCH)
     regions = {f"train_step B={TRAIN_BATCH}": lambda: step(state, batch),
                f"admm B={EVAL_BATCH}": lambda: admm_step(den, many, action),
-               "admm B=1": lambda: admm_step(den, one, action)}
-    for fn in regions.values():
-        fn()
-    trace_dir = os.path.join(tmp, "trace")
-    with trace_if_enabled(trace_dir):
-        for name, fn in regions.items():
-            torch.cuda.synchronize()
-            with annotate(name):
-                fn()
+               "admm B=1": lambda: admm_step(den, one, action),
+               f"serve policy batch B={SERVE_BATCH}":
+                   lambda: svc.restore(reqs, timeout=600)}
+    try:
+        for fn in regions.values():
+            fn()
+        trace_dir = os.path.join(tmp, "trace")
+        with trace_if_enabled(trace_dir):
+            for name, fn in regions.items():
                 torch.cuda.synchronize()
+                with annotate(name):
+                    fn()
+                    torch.cuda.synchronize()
+    finally:
+        svc.close(timeout=600)
     with open(os.path.join(trace_dir, TRACE_FILE)) as f:
         events = json.load(f)["traceEvents"]
     out = {"phase": "trace", "nvidia_smi": nvidia_smi(),
            "regions": {name: region_breakdown(events, name)
                        for name in regions}}
+
+    # Round 1 of a 2-round search of 16 trees, on each backend.
+    records, seeds = search_records(dirs)
+    printed = io.StringIO()
+    for backend in ("host", "device"):
+        mcts = _search(torch, dev, ckpt_dir, MCTSConfig(iterations=2),
+                       backend=backend)
+        search_dir = os.path.join(tmp, f"trace_search_{backend}")
+        with contextlib.redirect_stdout(printed):
+            mcts.run_batch(records, seeds=seeds)
+            with trace_if_enabled(search_dir):
+                mcts.run_batch(records, seeds=seeds)
+                torch.cuda.synchronize()
+        with open(os.path.join(search_dir, TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+        out["regions"][f"search round 1, {SEARCH_BATCH} trees, "
+                       f"{backend} backend"] = region_breakdown(
+                           events, SEARCH_ROUND.format(1))
     emit(out)
     idle = [n for n, r in out["regions"].items() if r["device_ms"] <= 0]
     if idle:
@@ -955,18 +1329,24 @@ def main() -> int:
         kernels.reset_launch_counts()
         phase_eval(torch, dev, ckpt_dir, dirs)
         paths["eval"] = kernels.launch_counts()
-        paths["mcts"] = phase_mcts(torch, dev, ckpt_dir, dirs, kernels)
+        paths["mcts"], paths["mcts_device"] = phase_mcts(
+            torch, dev, ckpt_dir, dirs, kernels)
         phase_arniqa(torch, dev, dirs)
+        paths.update(phase_serve(torch, dev, ckpt_dir, kernels))
         paths["train"] = phase_train(torch, dev, tmp, kernels)
-        phase_trace(torch, dev, ckpt_dir, tmp)
+        phase_trace(torch, dev, ckpt_dir, tmp, dirs)
     emit({"phase": "launches", "paths": paths})
     if any(paths["train"].values()):
         raise AssertionError(f"the train path launched kernels: "
                              f"{paths['train']}")
+    search = ("conv_block", "kspace", "attention", "layernorm")
     for path, want in (("rollout", ("conv_block", "kspace")),
                        ("eval", ("conv_block", "kspace", "dt_decode")),
-                       ("mcts", ("conv_block", "kspace", "attention",
-                                 "layernorm"))):
+                       ("mcts", search), ("mcts_device", search),
+                       ("serve_policy", ("conv_block", "kspace",
+                                         "dt_decode")),
+                       ("serve_fixed", ("conv_block", "kspace")),
+                       ("serve_mcts", search)):
         missing = [k for k in want if paths[path][k] <= 0]
         if missing:
             raise AssertionError(f"the {path} path launched no {missing}")

@@ -18,7 +18,10 @@ config (``--block_size`` up to 32 at the published widths) and the per-op
 forward with kernels K4 and K5 above that, and say which on stderr;
 ``mcts`` runs the per-op forward with K4 and K5 and scores leaves with
 ARNIQA when ``--arniqa_ckpt`` names a hub checkpoint, else with the proxy
-scorer. K4 takes every ``--block_size`` that ``max_timestep`` 30 allows.
+scorer; its tree lives on the device (``--tree_backend device``, the
+default, with ``--node_dtype``) or on the host (``--tree_backend host``,
+and ``--sequential``, one image at a time). K4 takes every
+``--block_size`` that ``max_timestep`` 30 allows.
 ``train`` reads trajectory jsons and an HDF5 state file (h5py), trains the
 Decision Transformer without the kernels (they have no backward), and
 writes ``model_<epoch>.pt`` in the reference's layout (which ``eval
@@ -111,10 +114,19 @@ def build_parser() -> argparse.ArgumentParser:
                                 "batching the trees")
             s.add_argument("--search_batch", type=int, default=16,
                            help="trees searched in lockstep per chunk")
-            s.add_argument("--tree_backend", default="host",
-                           choices=["host"],
-                           help="'host': tree logic on the host, one fused "
-                                "device iteration per search round")
+            s.add_argument("--tree_backend", default="device",
+                           choices=["device", "host"],
+                           help="'device' (default): the tree lives on the "
+                                "device as fixed-size arrays and the host "
+                                "only launches work; 'host': tree logic on "
+                                "the host, one fused device iteration per "
+                                "search round")
+            s.add_argument("--node_dtype", default="float32",
+                           choices=["float32", "bfloat16"],
+                           help="storage dtype of the device search's node "
+                                "states (bfloat16 halves the search's "
+                                "largest allocation; compute stays "
+                                "float32)")
     return p
 
 
@@ -183,8 +195,9 @@ def _evaluate(args) -> None:
 def _search(args) -> None:
     from .config import MCTSConfig, ModelConfig
     from .data import EvaluationDataset
-    from .inference import BatchedMCTS
-    from .models.arniqa import make_value_fn, proxy_value_fn
+    from .inference import MCTS, BatchedMCTS, DeviceMCTS
+    from .models.arniqa import (make_value_fn, make_value_fn_batched,
+                                proxy_value_fn, proxy_value_fn_batched)
     from .utils.loaders import load_arniqa, load_denoiser, load_dt
 
     rtg_target = float(args.rtg)
@@ -194,16 +207,24 @@ def _search(args) -> None:
     dt = load_dt(cfg, args.checkpoint, device=args.device)
     denoiser = load_denoiser(args.denoiser_ckpt, device=args.device)
     if args.arniqa_ckpt and os.path.exists(args.arniqa_ckpt):
-        value_fn = make_value_fn(load_arniqa(args.arniqa_ckpt, args.device),
-                                 cfg.image_size)
+        arniqa = load_arniqa(args.arniqa_ckpt, args.device)
+        value_fn = make_value_fn(arniqa, cfg.image_size)
+        value_fn_batched = make_value_fn_batched(arniqa, cfg.image_size)
     else:
         print("WARNING: no ARNIQA checkpoint; using the documented no-ref "
               "proxy scorer", file=sys.stderr)
-        value_fn = proxy_value_fn
+        value_fn, value_fn_batched = proxy_value_fn, proxy_value_fn_batched
     search_cfg = MCTSConfig(max_timesteps=args.max_timesteps or 30,
                             seed=args.seed)
-    mcts = BatchedMCTS(dt=dt, denoise=denoiser, model_cfg=cfg,
-                       cfg=search_cfg, value_fn=value_fn, device=args.device)
+    common = dict(dt=dt, denoise=denoiser, model_cfg=cfg, cfg=search_cfg,
+                  value_fn=value_fn, device=args.device)
+    if args.sequential:
+        mcts = MCTS(**common)
+    elif args.tree_backend == "host":
+        mcts = BatchedMCTS(**common)
+    else:
+        mcts = DeviceMCTS(value_fn_batched=value_fn_batched,
+                          node_dtype=args.node_dtype, **common)
     records = []
     for path in _existing_dirs(_default_dirs(args, EVAL_DIRS_9)):
         ds = EvaluationDataset(path, rtg_target=rtg_target, kind="optimal",

@@ -258,6 +258,28 @@ def greedy_rollout(dt_apply: Callable, denoise: Callable, cfg: ModelConfig,
     return env_state, compute_reward(env_state), ep_len, bufs
 
 
+def policy_forward(dt: DecisionTransformer, cfg: ModelConfig) -> Callable:
+    """The policy's forward: the fused one of ``dt`` (kernel K3) where K3
+    takes ``cfg``, else the per-op one."""
+    return (make_fused_dt_apply(dt) if fused_forward_takes(cfg)
+            else make_dt_apply(dt))
+
+
+def check_policy_forward(dt: DecisionTransformer, cfg: ModelConfig,
+                         device: torch.device) -> None:
+    """On the card, refuse a :func:`policy_forward` that would run the
+    per-op forward without kernels K4 and K5 (``dt`` built without
+    ``use_pallas``)."""
+    if device.type == "cuda" and not fused_forward_takes(cfg) \
+            and not dt.cfg.use_pallas:
+        raise ValueError(
+            f"kernel K3 does not take {3 * cfg.context_length} tokens at "
+            f"embed_dim {cfg.embed_dim} with {cfg.n_heads} heads, and the "
+            "per-op forward runs its kernels K4 and K5 on the card only "
+            "with ModelConfig(use_pallas=True); build the "
+            "DecisionTransformer with it")
+
+
 @dataclasses.dataclass
 class Evaluator:
     """Evaluation driver with the reference CLI's surface: a loop over
@@ -287,16 +309,8 @@ class Evaluator:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.dt_apply is None and self.device.type == "cuda" \
-                and not fused_forward_takes(self.cfg) \
-                and not self.dt.cfg.use_pallas:
-            raise ValueError(
-                f"kernel K3 does not take {3 * self.cfg.context_length} "
-                f"tokens at embed_dim {self.cfg.embed_dim} with "
-                f"{self.cfg.n_heads} heads, and the per-op forward runs its "
-                "kernels K4 and K5 on the card only with "
-                "ModelConfig(use_pallas=True); build the DecisionTransformer "
-                "with it")
+        if self.dt_apply is None:
+            check_policy_forward(self.dt, self.cfg, self.device)
 
     @torch.no_grad()
     def evaluate_records(self, records: Sequence[Tuple[Any, Any]]
@@ -319,9 +333,7 @@ class Evaluator:
         env_state = reset_from_mat(mats, device=dev)
         old_reward = compute_reward(env_state)
 
-        dt_apply = self.dt_apply or (
-            make_fused_dt_apply(self.dt) if fused_forward_takes(self.cfg)
-            else make_dt_apply(self.dt))
+        dt_apply = self.dt_apply or policy_forward(self.dt, self.cfg)
         encode = dt_embed_apply = None
         if self.cached_encoder:
             encode = make_state_encode(self.dt)

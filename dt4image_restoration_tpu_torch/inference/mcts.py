@@ -49,6 +49,7 @@ from ..models.decision_transformer import (DecisionTransformer,
                                            make_state_encode)
 from ..ops.metrics import psnr
 from ..utils.device import resolve_device
+from ..utils.profiling import SEARCH_ROUND, annotate
 from .evaluator import (EvalBuffers, greedy_rollout, make_policy_step,
                         seed_buffers, set_slot)
 
@@ -228,6 +229,69 @@ class MCTS:
         return (action_vec, pred_rtg, probs, stepped, new_bufs, final.x,
                 ep_len)
 
+    def _round(self, i: int, roots: List[Node], rngs, rewards_dicts,
+               states_dicts) -> None:
+        """Round ``i`` of every tree: select a leaf, expand it, score its
+        rollout and back the score up."""
+        dev, k = self.device, self.cfg.n_children
+        leaves = []
+        for root in roots:
+            root.s_visits += 1
+            node = root
+            while node.children:
+                node = select_p_ucb(node)
+                node.s_visits += 1
+            leaves.append(node)
+
+        # The loc-independent standard normals, in the order
+        # sample_actions consumes them: k sigma_d draws, then k mu
+        # draws, per tree.
+        z = torch.from_numpy(np.stack(
+            [r.standard_normal(2 * k) for r in rngs])).to(dev)
+        (action_vec, pred_rtg, probs, stepped, child_bufs, finals,
+         _) = self._search_iter(
+            _cat([n.bufs for n in leaves], EvalBuffers),
+            torch.tensor([n.time for n in leaves], device=dev),
+            _cat([n.env_state for n in leaves], CSMRIState),
+            torch.tensor([n.policy_rtg for n in leaves],
+                         dtype=torch.float32, device=dev),
+            z[:, :k], z[:, k:])
+        action_vec, pred_rtg, probs, finals = (
+            a.cpu().numpy() for a in (action_vec, pred_rtg, probs,
+                                      finals))
+
+        for j, node in enumerate(leaves):
+            node.action = action_vec[j]
+            node.policy_state = _rows(stepped, j * (k + 1),
+                                      j * (k + 1) + 1)
+            shared = _rows(child_bufs, j, j + 1)
+            for c in range(k):
+                lo = j * (k + 1) + c + 1
+                child = Node(time=node.time + 1, prob=float(probs[j, c]),
+                             parent=node, edge=c, index=i,
+                             env_state=_rows(stepped, lo, lo + 1),
+                             policy_state=node.policy_state,
+                             policy_rtg=float(pred_rtg[j]))
+                child.bufs = shared
+                node.children.append(child)
+
+        for j, node in enumerate(leaves):
+            rep = repr(node)
+            if rep in rewards_dicts[j]:
+                reward = rewards_dicts[j][rep]
+            else:
+                x = finals[j:j + 1].reshape(1, *finals.shape[-2:])
+                reward = float(self.value_fn(x))
+                rewards_dicts[j][rep] = reward
+                states_dicts[j][rep] = x
+            node.backprop(reward)
+            if self.record_trace:
+                self.traces[j].append({
+                    "iter": i, "time": node.time, "edge": node.edge,
+                    "index": node.index,
+                    "probs": [c.prob for c in node.children],
+                    "reward": reward})
+
     def run(self, record, seed: Optional[int] = None) -> float:
         """Search one image (a batch of one)."""
         return self.run_batch(
@@ -246,7 +310,7 @@ class MCTS:
                              "(empty evaluation directory?)")
         if seeds is None:
             seeds = [self.cfg.seed + i for i in range(len(records))]
-        dev, k = self.device, self.cfg.n_children
+        dev = self.device
         rngs = [np.random.default_rng(s) for s in seeds]
         self.traces = [[] for _ in records] if self.record_trace else None
 
@@ -273,63 +337,8 @@ class MCTS:
             states_dicts.append({})
 
         for i in range(self.cfg.iterations):
-            leaves = []
-            for root in roots:
-                root.s_visits += 1
-                node = root
-                while node.children:
-                    node = select_p_ucb(node)
-                    node.s_visits += 1
-                leaves.append(node)
-
-            # The loc-independent standard normals, in the order
-            # sample_actions consumes them: k sigma_d draws, then k mu
-            # draws, per tree.
-            z = torch.from_numpy(np.stack(
-                [r.standard_normal(2 * k) for r in rngs])).to(dev)
-            (action_vec, pred_rtg, probs, stepped, child_bufs, finals,
-             _) = self._search_iter(
-                _cat([n.bufs for n in leaves], EvalBuffers),
-                torch.tensor([n.time for n in leaves], device=dev),
-                _cat([n.env_state for n in leaves], CSMRIState),
-                torch.tensor([n.policy_rtg for n in leaves],
-                             dtype=torch.float32, device=dev),
-                z[:, :k], z[:, k:])
-            action_vec, pred_rtg, probs, finals = (
-                a.cpu().numpy() for a in (action_vec, pred_rtg, probs,
-                                          finals))
-
-            for j, node in enumerate(leaves):
-                node.action = action_vec[j]
-                node.policy_state = _rows(stepped, j * (k + 1),
-                                          j * (k + 1) + 1)
-                shared = _rows(child_bufs, j, j + 1)
-                for c in range(k):
-                    lo = j * (k + 1) + c + 1
-                    child = Node(time=node.time + 1, prob=float(probs[j, c]),
-                                 parent=node, edge=c, index=i,
-                                 env_state=_rows(stepped, lo, lo + 1),
-                                 policy_state=node.policy_state,
-                                 policy_rtg=float(pred_rtg[j]))
-                    child.bufs = shared
-                    node.children.append(child)
-
-            for j, node in enumerate(leaves):
-                rep = repr(node)
-                if rep in rewards_dicts[j]:
-                    reward = rewards_dicts[j][rep]
-                else:
-                    x = finals[j:j + 1].reshape(1, *finals.shape[-2:])
-                    reward = float(self.value_fn(x))
-                    rewards_dicts[j][rep] = reward
-                    states_dicts[j][rep] = x
-                node.backprop(reward)
-                if self.record_trace:
-                    self.traces[j].append({
-                        "iter": i, "time": node.time, "edge": node.edge,
-                        "index": node.index,
-                        "probs": [c.prob for c in node.children],
-                        "reward": reward})
+            with annotate(SEARCH_ROUND.format(i)):
+                self._round(i, roots, rngs, rewards_dicts, states_dicts)
 
         out = []
         for j, root in enumerate(roots):

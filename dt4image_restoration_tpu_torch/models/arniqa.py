@@ -14,6 +14,10 @@ maps the KADID-10k MOS range onto [0, 1]. This module provides:
     as torchvision's ``Resize`` does on tensors; no ImageNet normalisation);
   * ``proxy_value_fn``: the deterministic no-reference proxy the search
     uses when no ARNIQA weights are given;
+  * ``make_value_fn_batched`` and ``proxy_value_fn_batched``: the two
+    scorers over a (B, H, W) batch on its device, (B,) scores out, for the
+    device-resident search (``inference/mcts_device.py``), which scores a
+    batch of leaves in one call without a trip to the host;
   * ``random_arniqa_state_dict``: hub-layout random weights from a seed.
 """
 from __future__ import annotations
@@ -129,6 +133,31 @@ def make_value_fn(model: ARNIQA, image_size: int = 128
         return float(score_images(model, img.reshape(1, *img.shape[-2:]),
                                   image_size)[0])
     return value
+
+
+def make_value_fn_batched(model: ARNIQA, image_size: int = 128
+                          ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Batched twin of :func:`make_value_fn`: (B, H, W) images in [0, 1] on
+    the device of ``model`` -> (B,) ARNIQA scores, left on that device."""
+    model.eval()
+
+    def value(x: torch.Tensor) -> torch.Tensor:
+        return score_images(model, x.float(), image_size)
+    return value
+
+
+def proxy_value_fn_batched(x: torch.Tensor) -> torch.Tensor:
+    """Batched twin of :func:`proxy_value_fn`: (B, H, W) -> (B,) on the
+    device of ``x``. The same formula in float32; the 95th percentile
+    interpolates linearly, as ``np.percentile`` does."""
+    img = x.float()
+    gy, gx = torch.gradient(img, dim=(1, 2))
+    grad_mag = torch.sqrt(gx ** 2 + gy ** 2)
+    lap = (torch.diff(img, n=2, dim=1).abs().mean(dim=(1, 2))
+           + torch.diff(img, n=2, dim=2).abs().mean(dim=(1, 2)))
+    edge = torch.quantile(grad_mag.reshape(img.shape[0], -1), 0.95, dim=1,
+                          interpolation="linear")
+    return edge - 5.0 * lap
 
 
 def proxy_value_fn(x: np.ndarray) -> float:

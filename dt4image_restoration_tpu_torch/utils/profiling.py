@@ -6,6 +6,10 @@ Usage:
         with annotate("train_step"):
             run_workload()
 
+Both tree searches (``inference/mcts.py``, ``inference/mcts_device.py``)
+annotate each round as ``SEARCH_ROUND.format(i)``, so that one round of
+either backend can be read from a trace with :func:`region_breakdown`.
+
     timer = StepTimer(device)
     for batch in ...:
         with timer:
@@ -26,6 +30,8 @@ TRACE_ENV_VAR = "DT4IR_TRACE_DIR"
 TRACE_FILE = "trace.json"
 # Chrome-trace categories of the work a CUDA device runs.
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+# The span of round i of a tree search.
+SEARCH_ROUND = "search round {}"
 
 
 @contextlib.contextmanager

@@ -9,10 +9,13 @@ import torch
 
 from dt4image_restoration_tpu.models.arniqa import (
     ARNIQA as JARNIQA, convert_arniqa_state_dict,
-    make_value_fn as j_make_value_fn, proxy_value_fn as j_proxy_value_fn)
+    make_value_fn as j_make_value_fn,
+    make_value_fn_jax as j_make_value_fn_batched,
+    proxy_value_fn as j_proxy_value_fn)
 from dt4image_restoration_tpu.utils.torch_reference import (
     random_arniqa_state_dict as j_random_arniqa_state_dict)
 from dt4image_restoration_tpu_torch.models import (ARNIQA, make_value_fn,
+                                                   make_value_fn_batched,
                                                    proxy_value_fn,
                                                    random_arniqa_state_dict,
                                                    score_images)
@@ -59,6 +62,23 @@ def test_value_fn_matches_jax(shared):
     batch = np.concatenate([x, x[:, ::-1]])
     scores = score_images(model, torch.from_numpy(batch.copy()), SIZE)
     np.testing.assert_allclose(scores[0].item(), got, rtol=1e-5, atol=1e-6)
+
+
+def test_batched_value_fn_matches_jax(shared):
+    """The device search's scorer: a (B, H, W) batch in, (B,) scores out,
+    against the JAX package's batched twin and the port's own per-image
+    scorer."""
+    _, variables, model = shared
+    x = np.random.default_rng(2).uniform(0, 1, (2, SIZE, SIZE)).astype(
+        np.float32)
+    ref = np.asarray(jax.jit(j_make_value_fn_batched(
+        variables, image_size=SIZE))(jnp.asarray(x)))
+    got = make_value_fn_batched(model, image_size=SIZE)(torch.from_numpy(x))
+    assert got.shape == (2,)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)
+    one = make_value_fn(model, image_size=SIZE)
+    np.testing.assert_allclose(got.numpy(), [one(v[None]) for v in x],
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_hub_state_dict_loads_strictly(shared, tmp_path):

@@ -16,13 +16,15 @@ import torch
 from dt4image_restoration_tpu_torch.config import MCTSConfig, ModelConfig
 from dt4image_restoration_tpu_torch.data import (EvaluationDataset,
                                                  write_eval_dir)
-from dt4image_restoration_tpu_torch.inference import MCTS, Evaluator
+from dt4image_restoration_tpu_torch.inference import (MCTS, DeviceMCTS,
+                                                      Evaluator)
 from dt4image_restoration_tpu_torch.models import (DecisionTransformer,
                                                    UNetDenoiser,
                                                    fused_forward_takes,
                                                    init_dt_params,
                                                    make_dt_apply,
                                                    proxy_value_fn,
+                                                   proxy_value_fn_batched,
                                                    random_unet_state_dict)
 from dt4image_restoration_tpu_torch.ops import kernels
 from dt4image_restoration_tpu_torch.ops.kernels import attention as k4
@@ -611,3 +613,138 @@ def test_bfloat16_train_step_on_card(dev):
     assert loss != f32                  # bfloat16 products did run
     assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
                for p in model.parameters())
+
+
+# --- device search and serving -------------------------------------------
+
+def _search_models(device, block_size=18):
+    cfg = ModelConfig(block_size=block_size, use_pallas=True)
+    unet = UNetDenoiser().eval().requires_grad_(False)
+    unet.load_state_dict(random_unet_state_dict(0))
+    return _long_window_policy(cfg, device), unet.to(device), cfg
+
+
+def _quantized(x):
+    """A scorer that float reordering between devices cannot move."""
+    return torch.round(x.mean(dim=(1, 2)) * 1e3) / 10.0
+
+
+def test_device_search_on_card_matches_host_and_cpu(dev, tmp_path):
+    """Three rounds of two trees at the published widths: the device
+    search on the card has the host search's traces on the card and its
+    own on the CPU; priors within 1e-4, final PSNR within 0.05 dB. It runs
+    K1, K2, K4 and K5."""
+    d = write_eval_dir(str(tmp_path / "4_15"), "4_15", n=2, seed=9)
+    records = [EvaluationDataset(d, 5.0)[i] for i in range(2)]
+    runs = {}
+    for name, cls, device in (("device card", DeviceMCTS, dev),
+                              ("host card", MCTS, dev),
+                              ("device cpu", DeviceMCTS, "cpu")):
+        dt, unet, cfg = _search_models(device)
+        kw = dict(value_fn_batched=_quantized) if cls is DeviceMCTS else {}
+        m = cls(dt=dt, denoise=unet, model_cfg=cfg,
+                cfg=MCTSConfig(iterations=3, max_timesteps=8),
+                value_fn=lambda x: float(_quantized(torch.as_tensor(
+                    np.asarray(x, np.float32)).reshape(1, 128, 128))[0]),
+                record_trace=True, device=device, **kw)
+        kernels.reset_launch_counts()
+        runs[name] = (m.run_batch(records, seeds=[0, 1]), m.traces,
+                      kernels.launch_counts())
+    rewards, traces, counts = runs["device card"]
+    assert all(counts[k] > 0 for k in ("conv_block", "kspace", "attention",
+                                       "layernorm"))
+    key = ("iter", "time", "edge", "index")
+    for other in ("host card", "device cpu"):
+        for a, b in zip(traces, runs[other][1]):
+            assert [[e[k] for k in key] for e in a] \
+                == [[e[k] for k in key] for e in b], other
+            for x, y in zip(a, b):
+                np.testing.assert_allclose(x["probs"], y["probs"],
+                                           rtol=1e-4)
+        np.testing.assert_allclose(rewards, runs[other][0], rtol=0,
+                                   atol=0.05)
+
+
+def test_device_search_bfloat16_nodes_on_card(dev, tmp_path):
+    """bfloat16 node storage on the card: within 0.05 dB of float32."""
+    d = write_eval_dir(str(tmp_path / "4_15"), "4_15", n=2, seed=9)
+    records = [EvaluationDataset(d, 5.0)[i] for i in range(2)]
+    dt, unet, cfg = _search_models(dev)
+    out = [DeviceMCTS(dt=dt, denoise=unet, model_cfg=cfg,
+                      cfg=MCTSConfig(iterations=3, max_timesteps=8),
+                      value_fn=proxy_value_fn,
+                      value_fn_batched=proxy_value_fn_batched,
+                      node_dtype=nd, device=dev).run_batch(
+                          records, seeds=[0, 1], verbose=False)
+           for nd in ("float32", "bfloat16")]
+    np.testing.assert_allclose(out[1], out[0], rtol=0, atol=0.05)
+
+
+def _serve(device, mode, requests, **kw):
+    from dt4image_restoration_tpu_torch.serving import RestorationService
+    dt, unet, _ = _search_models(device)
+    if mode == "mcts":
+        kw["search_cfg"] = MCTSConfig(iterations=2, max_timesteps=8)
+    svc = RestorationService(denoise=unet, dt=dt, mode=mode, batch_size=4,
+                             max_timesteps=8, device=device, **kw)
+    try:
+        return svc.restore(requests, timeout=600)
+    finally:
+        svc.close(timeout=600)
+
+
+@pytest.mark.parametrize("mode,want", [
+    ("policy", ("conv_block", "kspace", "dt_decode")),
+    ("fixed", ("conv_block", "kspace")),
+    ("mcts", ("conv_block", "kspace", "attention", "layernorm"))])
+def test_serving_modes_on_card_match_cpu(dev, mode, want):
+    """Three requests (a padded batch of 4) served on the card and on the
+    CPU: equal episode lengths, PSNR within 0.05 dB; the card's run
+    launches the mode's kernels."""
+    from dt4image_restoration_tpu_torch.data import make_mat_record
+    from dt4image_restoration_tpu_torch.serving import RestorationRequest
+    reqs = [RestorationRequest(mat=make_mat_record(seed=i), rtg=5.0, task=2)
+            for i in range(3)]
+    kernels.reset_launch_counts()
+    card = _serve(dev, mode, reqs)
+    counts = kernels.launch_counts()
+    cpu = _serve("cpu", mode, reqs)
+    assert all(counts[k] > 0 for k in want), counts
+    for a, b in zip(card, cpu):
+        assert a.episode_len == b.episode_len
+        assert abs(a.psnr_db - b.psnr_db) <= 0.05
+        assert a.image.shape == (128, 128)
+
+
+@pytest.mark.parametrize("mode", ["policy", "fixed"])
+def test_pipelined_service_on_card_matches_unpipelined(dev, mode):
+    """pipeline_depth=2 on the card (the side-stream copy to pinned host
+    memory) returns what the inline path does, over 3 batches."""
+    from dt4image_restoration_tpu_torch.data import make_mat_record
+    from dt4image_restoration_tpu_torch.serving import RestorationRequest
+    reqs = [RestorationRequest(mat=make_mat_record(seed=i), rtg=5.0, task=2)
+            for i in range(10)]
+    want = _serve(dev, mode, reqs)
+    got = _serve(dev, mode, reqs, pipeline_depth=2)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.image, w.image)
+        assert g.episode_len == w.episode_len and g.psnr_db == w.psnr_db
+
+
+@pytest.mark.parametrize("mode,block_size,use_pallas,refused", [
+    ("policy", 36, False, True), ("policy", 36, True, False),
+    ("policy", 18, False, False), ("mcts", 18, False, True),
+    ("mcts", 18, True, False)])
+def test_service_refuses_per_op_forward_without_kernels(
+        dev, mode, block_size, use_pallas, refused):
+    """On the card, a service whose policy would run the per-op forward
+    without K4 and K5 is refused when it is made."""
+    from dt4image_restoration_tpu_torch.serving import RestorationService
+    cfg = ModelConfig(block_size=block_size, use_pallas=use_pallas)
+    dt = DecisionTransformer(cfg).eval().requires_grad_(False).to(dev)
+    kw = dict(denoise=lambda x, sigma: x, dt=dt, mode=mode, device=dev)
+    if refused:
+        with pytest.raises(ValueError, match="use_pallas=True"):
+            RestorationService(**kw)
+    else:
+        RestorationService(**kw).close(timeout=60)

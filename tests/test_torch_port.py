@@ -24,11 +24,13 @@ PORT_MODULES = [
     "dt4image_restoration_tpu_torch.env",
     "dt4image_restoration_tpu_torch.inference",
     "dt4image_restoration_tpu_torch.inference.mcts",
+    "dt4image_restoration_tpu_torch.inference.mcts_device",
     "dt4image_restoration_tpu_torch.models",
     "dt4image_restoration_tpu_torch.models.arniqa",
     "dt4image_restoration_tpu_torch.ops",
     "dt4image_restoration_tpu_torch.ops.kernels",
     "dt4image_restoration_tpu_torch.ops.kernels._build",
+    "dt4image_restoration_tpu_torch.serving",
     "dt4image_restoration_tpu_torch.utils.convert",
     "dt4image_restoration_tpu_torch.utils.loaders",
 ]
@@ -77,13 +79,15 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["reset", "loader", "evaluator", "env",
-                                   "search", "arniqa"])
+                                   "search", "arniqa", "device_search",
+                                   "service"])
 def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from dt4image_restoration_tpu_torch.config import MCTSConfig, ModelConfig
     from dt4image_restoration_tpu_torch.data import make_mat_record
     from dt4image_restoration_tpu_torch.env import PnPEnv, reset_from_mat
-    from dt4image_restoration_tpu_torch.inference import MCTS, Evaluator
+    from dt4image_restoration_tpu_torch.inference import (DeviceMCTS, MCTS,
+                                                          Evaluator)
     from dt4image_restoration_tpu_torch.models import (DecisionTransformer,
                                                        UNetDenoiser,
                                                        proxy_value_fn)
@@ -101,6 +105,14 @@ def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
         elif entry == "search":
             MCTS(dt=DecisionTransformer(cfg), denoise=UNetDenoiser(8),
                  model_cfg=cfg, cfg=MCTSConfig(), value_fn=proxy_value_fn)
+        elif entry == "device_search":
+            DeviceMCTS(dt=DecisionTransformer(cfg), denoise=UNetDenoiser(8),
+                       model_cfg=cfg, cfg=MCTSConfig(),
+                       value_fn=proxy_value_fn)
+        elif entry == "service":
+            from dt4image_restoration_tpu_torch.serving import (
+                RestorationService)
+            RestorationService(denoise=UNetDenoiser(8), mode="fixed")
         elif entry == "arniqa":
             load_arniqa(str(tmp_path / "missing.pt"))
         else:
@@ -173,28 +185,60 @@ def test_cli_flex_on_cpu(tmp_path):
     assert _labels(r.stdout) == JAX_LABELS["flex"]
 
 
-def test_cli_mcts_on_cpu(tmp_path, monkeypatch, capsys):
-    """mcts searches every image of the directory with the proxy scorer
-    (no ARNIQA weights) and prints a reward per image and the total. The
-    command line runs in-process with the search cut to two iterations,
-    which keeps the full-width models quick on the CPU."""
+def _cli_mcts(tmp_path, monkeypatch, capsys, *flags, images=2):
+    """Run the mcts verb in-process on ``images`` slices with the search
+    cut to two rounds, which keeps the full-width models quick on the CPU;
+    check its output and return the search class (and node dtype) of each
+    run_batch call."""
     from dt4image_restoration_tpu_torch import __main__ as cli
     from dt4image_restoration_tpu_torch import config
     from dt4image_restoration_tpu_torch.data import write_eval_dir
-    d = write_eval_dir(str(tmp_path / "4_15"), "4_15", n=2, size=128)
+    from dt4image_restoration_tpu_torch.inference import MCTS, DeviceMCTS
+    d = write_eval_dir(str(tmp_path / "4_15"), "4_15", n=images, size=128)
     monkeypatch.setattr(config, "MCTSConfig",
                         functools.partial(config.MCTSConfig, iterations=2))
+    ran = []
+    for cls in (MCTS, DeviceMCTS):
+        def run_batch(self, *a, _run=cls.run_batch, **kw):
+            ran.append((type(self).__name__,
+                        getattr(self, "node_dtype", None)))
+            return _run(self, *a, **kw)
+        monkeypatch.setattr(cls, "run_batch", run_batch)
     cli.main(["--block_size", "18", "--n_embeds", "9", "--device", "cpu",
               "mcts", "--rtg", "5", "--max_timesteps", "6",
               "--checkpoint", str(tmp_path / "n.pt"),
-              "--denoiser_ckpt", str(tmp_path / "n.pt"), "--data_dirs", d])
+              "--denoiser_ckpt", str(tmp_path / "n.pt"), "--data_dirs", d,
+              *flags])
     r = capsys.readouterr()
     assert "no ARNIQA checkpoint; using the documented no-ref proxy" \
         in r.err
     out = r.out.splitlines()
     per_image = [float(ln.split(":", 1)[1]) for ln in out
                  if ln.startswith("MCTS Reward: ")]
-    assert len(per_image) == 2 and all(0 < v < 60 for v in per_image)
+    assert len(per_image) == images
+    assert all(0 < v < 60 for v in per_image)
     assert out[-1].startswith("Total MCTS reward:")
     assert float(out[-1].split(":", 1)[1]) == pytest.approx(sum(per_image))
     assert _labels(r.out) == JAX_LABELS["mcts"]
+    return ran
+
+
+def test_cli_mcts_on_cpu(tmp_path, monkeypatch, capsys):
+    """mcts searches every image of the directory with the proxy scorer
+    (no ARNIQA weights) and prints a reward per image and the total. As in
+    the JAX command line, the search's tree lives on the device by
+    default (DeviceMCTS, float32 nodes)."""
+    ran = _cli_mcts(tmp_path, monkeypatch, capsys)
+    assert ran == [("DeviceMCTS", "float32")]
+
+
+@pytest.mark.parametrize("flags,want", [
+    (("--tree_backend", "host"), ("BatchedMCTS", None)),
+    (("--node_dtype", "bfloat16"), ("DeviceMCTS", "bfloat16")),
+])
+def test_cli_mcts_backends_on_cpu(tmp_path, monkeypatch, capsys, flags,
+                                  want):
+    """--tree_backend host runs the host-tree search; --node_dtype reaches
+    the device search."""
+    assert _cli_mcts(tmp_path, monkeypatch, capsys, *flags,
+                     images=1) == [want]

@@ -426,11 +426,13 @@ def test_trainer_refuses_kernel_model(tmp_path):
 def test_reference_checkpoint_loads_in_jax_and_port(tmp_path, rng):
     """A model_<epoch>.pt of the port, in the reference's layout: the JAX
     package's load_dt_checkpoint gives the same forward, and the port's
-    eval loader the same weights."""
-    kw = dict(SMALL, image_size=128)
-    jcfg = JModelConfig(**kw)
-    cfg = ModelConfig(**kw)
-    model = DecisionTransformer(cfg).eval()
+    eval loader the same weights. The weights come from a seeded JAX init,
+    not from PyTorch's global generator, so they do not depend on the
+    tests that ran before this one; the forward is held to the DT
+    forward's band (PARITY.md: 2e-3 relative), at which a mis-mapped
+    weight still shows as an O(1) error."""
+    jcfg, _, cfg, model = _shared(seed=3, image_size=128)
+    model.eval()
     path = str(tmp_path / "model_0.pt")
     save_dt_reference(path, model.state_dict(), cfg)
     params = load_dt_checkpoint(path)
@@ -439,9 +441,12 @@ def test_reference_checkpoint_loads_in_jax_and_port(tmp_path, rng):
     ref = j_make_dt_apply(jcfg)(params, *map(jnp.asarray, args))
     with torch.no_grad():
         got = model(*map(torch.from_numpy, args))
-    _close(got.pred_actions.numpy(), np.asarray(ref.pred_actions), 1e-5,
-           1e-6)
-    _close(got.pred_rtg.numpy(), np.asarray(ref.pred_rtg), 1e-5, 1e-6)
+    np.testing.assert_allclose(got.pred_actions.numpy(),
+                               np.asarray(ref.pred_actions), rtol=2e-3,
+                               atol=1e-6)
+    np.testing.assert_allclose(got.pred_rtg.numpy(),
+                               np.asarray(ref.pred_rtg), rtol=2e-3,
+                               atol=1e-5)
     loaded = load_dt(cfg, path, device="cpu")
     for k, v in model.state_dict().items():
         assert torch.equal(loaded.state_dict()[k], v)
