@@ -11,7 +11,8 @@ fixed seeds, checks the results against CPU runs of the same code, and
 prints one JSON line per phase. The paths:
 
   * rollout: 30-iteration fixed-parameter PnP-ADMM on one 128x128 slice
-    (kernels K1, K2);
+    (kernels K1, K2), then the one-slice rollout repeated 20 times for the
+    median and quartiles of its rate;
   * eval: greedy Decision Transformer evaluation of 63 slices, 7 from each
     of 9 synthetic eval directories, with the fused policy forward (K1, K2,
     K3);
@@ -40,19 +41,32 @@ prints one JSON line per phase. The paths:
   * trace: ``torch.profiler`` (``utils/profiling.py``) over one train step
     at B=48, one ADMM iteration at B=63 and at B=1, one search round of 16
     trees on each backend and one served policy batch of 16: device ms,
-    idle share and the largest device ops of each.
+    idle share and the largest device ops of each;
+  * unet_modes: one denoiser forward at B=63 on 128x128 slices in every
+    ``--unet_packed`` mode x dtype: device ms, and the error against the
+    direct float32 forward;
+  * eval_bf16: the eval path in bfloat16 (``--dtype bfloat16``, U-Net mode
+    ``pallas``: the bfloat16 K1, K2, K3) against the float32 eval and, on
+    two slices, against the CPU;
+  * mcts_bf16: a device-backend search of 16 trees x 3 rounds in bfloat16
+    (the bfloat16 K1, K2, K4, K5), after a 1-round warm-up; its rate is
+    that of rounds 1 and 2 (the 3-round search's wall less a 1-round
+    one's).
 
 K1 is timed at the batches of these paths (1, 16, 63 and 96 slices), K3
-at one slice and at 63, both bounded by the 3xTF32 tensor-core rate; K3 is
+at one slice and at 63, both bounded by the 3xTF32 tensor-core rate; K1 in
+bfloat16 at 1, 16, 63 and 96 slices against the dense bfloat16 rate and
+cuDNN's bfloat16 conv chain, and against the float32 K1; K3 is
 also held against a chain of PyTorch's own calls for the same stack
 (``F.layer_norm``, ``F.linear``, ``F.scaled_dot_product_attention``,
 ``F.gelu``), timed from a CUDA graph. K4 is timed on the strided q, k, v
 views the per-op forward hands it, at 18 tokens and at 90
 (--block_size 90). The per_op_forward phase times one per-op policy forward
 at the search's shape eagerly and from a CUDA graph and counts the kernels
-it runs with ``torch.profiler``. The run fails if the
-build of K1 or K3 spills registers. Launches are counted per path, from
-zero just before it to just after it.
+it runs with ``torch.profiler``. The run fails if the build of K1 (either
+dtype) or K3 spills registers. Launches are counted per path, from zero
+just before it to just after it; a bfloat16 path that launches the
+float32 K1, or a float32 path the bfloat16 one, fails the run.
 The line before the last is the kernel summary; the last line is the device
 summary. Any failure ends the run with a traceback and a non-zero exit
 code.
@@ -83,6 +97,7 @@ SERVE_CLIENTS, SERVE_PER_CLIENT = 32, 8
 SERVE_MCTS_BATCH = 8
 SERVE_RTG, SERVE_TASK = 0.6, 2
 EXPANSION_BATCH = 96                   # the search's 6-slot expansion
+ROLLOUT_REPEATS = 20                   # one-slice rollouts for a median
 TRAIN_BATCH, TRAIN_T = 48, 6           # TrainerConfig's batch, 18 tokens
 TRAIN_STEPS, TRAIN_EPOCHS = 25, 2      # batches an epoch, epochs
 H100_F32_FLOPS = 67e12                 # float32 outside the tensor cores
@@ -90,11 +105,16 @@ H100_F32_FLOPS = 67e12                 # float32 outside the tensor cores
 # as three TF32 products each (3xTF32).
 H100_3XTF32_FLOPS = 495e12 / 3
 H100_BYTES_PER_S = 3.35e12             # HBM3
+# Dense bfloat16 tensor-core rate by the card's name (NVIDIA's data sheets);
+# the H100 SXM's unless the name says PCIe or NVL.
+BF16_FLOPS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("", 989e12))
 # Kernels built around mma.sync: the device line reports their SASS counts,
 # and the run fails if their builds spill registers.
-TENSOR_CORE_KERNELS = ("conv_block", "dt_decode")
+TENSOR_CORE_KERNELS = ("conv_block", "conv_block_bf16", "dt_decode")
 REPLACES = {
     "conv_block": "dt4image_restoration_tpu/ops/pallas/conv_block.py:134",
+    "conv_block_bf16":
+        "dt4image_restoration_tpu/ops/pallas/conv_block.py:134",
     "kspace": "dt4image_restoration_tpu/ops/pallas/kspace.py:37",
     "dt_decode": "dt4image_restoration_tpu/ops/pallas/transformer.py:122",
     "attention": "dt4image_restoration_tpu/ops/pallas/attention.py:39",
@@ -102,10 +122,28 @@ REPLACES = {
 }
 TOLERANCE = {"conv_block": 1e-4, "kspace": 1e-6, "dt_decode": 1e-4,
              "attention": 1e-5, "layernorm": 1e-5}
+# K1 in bfloat16 against its plain version: both sum in float32 in another
+# order and round each layer to bfloat16, so a value near a rounding
+# boundary can come out one bfloat16 step (2^-7 relative) apart, and such a
+# step in an intermediate moves the next layer's sums. The band is two
+# steps of the largest output: 2^-6 x max |plain|.
+BF16_STEPS = 2.0 ** -6
+# Against the float32 K1 on the same float32-valued input: the band of the
+# JAX package's bfloat16 test of this kernel (tests/test_pallas.py),
+# |bf16 - f32| <= 0.05 + 0.1 |f32| elementwise.
+BF16_VS_F32 = (0.05, 0.1)
+# The U-Net band (PARITY.md): float32 modes against the direct float32
+# forward, |a - b| <= 2e-4 + 1e-3 |b|; bfloat16 modes: mean |a - f32| at
+# most 1.5x that of the direct bfloat16 forward, plus 1e-4
+# (tests/test_unet.py).
+UNET_F32_BAND = (2e-4, 1e-3)
+UNET_BF16_RULE = (1.5, 1e-4)
+EVAL_BF16_DB = 0.15                    # tests/test_eval.py's bfloat16 band
 # The shape of each kernel's summary row: the main path's (the evaluation
 # batch for K1-K3, the search batch for K4 and K5).
 SUMMARY_SHAPES = {
     "conv_block": (f"inc B={EVAL_BATCH}", f"up4 B={EVAL_BATCH}"),
+    "conv_block_bf16": (f"inc B={EVAL_BATCH}", f"up4 B={EVAL_BATCH}"),
     "kspace": (f"B={EVAL_BATCH}",),
     "dt_decode": (f"B={EVAL_BATCH} T=12", f"B={EVAL_BATCH} T=18"),
     "attention": (f"B={SEARCH_BATCH} H=4 T=18 D=32",),
@@ -126,9 +164,15 @@ def bound(flops: float, nbytes: float, peak: float = H100_F32_FLOPS):
                                        else "bytes")
 
 
+def bf16_peak(name: str) -> float:
+    """The dense bfloat16 tensor-core rate of the card ``name``."""
+    return next(rate for key, rate in BF16_FLOPS if key in name)
+
+
 def sass_counts(library):
-    """Tensor-core TF32 and scalar FMA instructions in a built library's
-    SASS, from ``cuobjdump -sass``; None where the tool is missing."""
+    """Tensor-core (TF32, bfloat16) and scalar FMA instructions in a built
+    library's SASS, from ``cuobjdump -sass``; None where the tool is
+    missing."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -136,6 +180,7 @@ def sass_counts(library):
     sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
     return {"hmma_tf32": len(re.findall(r"\bHMMA\.\S*TF32", sass)),
+            "hmma_bf16": len(re.findall(r"\bHMMA\.\S*BF16", sass)),
             "ffma": len(re.findall(r"\bFFMA\b", sass))}
 
 
@@ -255,14 +300,15 @@ def phase_kernels(torch, dev):
 
     def record(kernel, shape, got, ref, ms, plain_ms, library_ms, flops,
                nbytes, call_ms=None, peak=H100_F32_FLOPS, peak_name="",
-               **extra):
+               tolerance=None, **extra):
         abs_err, rel_err = max_errors(got, ref)
         bound_ms, bound_by = bound(flops, nbytes, peak)
         if peak_name and bound_by == "operations":
             bound_by = f"operations ({peak_name})"
+        tol = TOLERANCE[kernel] if tolerance is None else tolerance
         row = {"phase": "kernel", "kernel": kernel, "shape": shape,
                "max_abs_err": abs_err, "max_rel_err": rel_err,
-               "tolerance": TOLERANCE[kernel], "kernel_ms": ms,
+               "tolerance": tol, "kernel_ms": ms,
                "call_ms": call_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "flops": flops, "bytes": nbytes,
@@ -270,9 +316,9 @@ def phase_kernels(torch, dev):
         if peak != H100_F32_FLOPS:
             row["bound_f32_ms"] = bound(flops, nbytes)[0]
         emit(row)
-        if not abs_err <= TOLERANCE[kernel]:
+        if not abs_err <= tol:
             raise AssertionError(f"{kernel} {shape}: max abs error {abs_err} "
-                                 f"over {TOLERANCE[kernel]}")
+                                 f"over {tol}")
         rows.append(row)
 
     # K1 at the U-Net's two full-resolution blocks, at the batches of the
@@ -280,7 +326,7 @@ def phase_kernels(torch, dev):
     # search's expansion.
     for name, block, cin in (("inc", unet.net.inc, 2),
                              ("up4", unet.net.up4, 96)):
-        packed = block.packed()
+        packed = block.packed_weights()
         for b in (1, SEARCH_BATCH, EVAL_BATCH, EXPANSION_BATCH):
             x = torch.rand((b, cin, 128, 128), generator=gen, device=dev)
             got = k1.conv_block(x, packed)
@@ -304,6 +350,65 @@ def phase_kernels(torch, dev):
                            iters),
                    time_ms(torch, library, iters), flops, nbytes,
                    peak=H100_3XTF32_FLOPS, peak_name="3xTF32")
+
+    # K1 in bfloat16 at the same blocks, at the batches of the bfloat16
+    # paths: one slice, the search's rollouts, the evaluation batch and the
+    # search's expansion. The
+    # kernel's device time from a CUDA graph, the eager call's from CUDA
+    # events; cuDNN's bfloat16 conv chain as the library call. Each
+    # input is a float32 draw rounded to bfloat16, so the float32 K1 on
+    # the float32 draw shows what bfloat16 costs in accuracy.
+    unet16 = UNetDenoiser(dtype="bfloat16").eval().requires_grad_(False)
+    unet16.load_state_dict(random_unet_state_dict(0))
+    unet16.to(dev)
+    peak16 = bf16_peak(torch.cuda.get_device_name(0))
+    for name, block, block32, cin in (
+            ("inc", unet16.net.inc, unet.net.inc, 2),
+            ("up4", unet16.net.up4, unet.net.up4, 96)):
+        packed, packed32 = block.packed_weights(), block32.packed_weights()
+        for b in (1, SEARCH_BATCH, EVAL_BATCH, EXPANSION_BATCH):
+            x32 = torch.rand((b, cin, 128, 128), generator=gen, device=dev)
+            x = x32.to(torch.bfloat16)
+            got = k1.conv_block(x, packed)
+            ref = k1.conv_block_plain(x, packed)
+            f32 = k1.conv_block(x32, packed32)
+            off = (got.float() - f32).abs()
+            vs_f32 = float(off.max())
+            lo, rel = BF16_VS_F32
+            if not bool((off <= lo + rel * f32.abs()).all()):
+                raise AssertionError(
+                    f"conv_block_bf16 {name} B={b}: off the float32 K1 by "
+                    f"{vs_f32}, over {lo} + {rel} |f32|")
+
+            ws16 = [(c.weight.to(torch.bfloat16), c.bias.to(torch.bfloat16))
+                    for c in block.convs()]
+
+            def library(x=x, ws16=ws16):
+                y = x
+                for w16, b16 in ws16:
+                    y = F.leaky_relu(F.conv2d(y, w16, b16, padding=1), 0.2)
+                return y
+
+            iters = 50 if b == 1 else 10
+            f, hw = packed.features, 128 * 128
+            flops = 2.0 * b * hw * 9 * (cin * f + 2 * f * f)
+            nbytes = 2.0 * (b * hw * (cin + f) + packed.weights.numel()
+                            + packed.biases.numel())
+            record("conv_block_bf16", f"{name} B={b}", got.float(),
+                   ref.float(),
+                   time_graph_ms(torch, lambda: k1.conv_block(x, packed),
+                                 launches=50 if b == 1 else 10, replays=5),
+                   time_ms(torch, lambda: k1.conv_block_plain(x, packed),
+                           iters),
+                   time_graph_ms(torch, library,
+                                 launches=50 if b == 1 else 10, replays=5),
+                   flops, nbytes,
+                   call_ms=time_ms(torch, lambda: k1.conv_block(x, packed),
+                                   iters),
+                   peak=peak16, peak_name="bf16",
+                   tolerance=BF16_STEPS * float(ref.float().abs().max()),
+                   max_abs_err_vs_f32=vs_f32,
+                   vs_f32_band=list(BF16_VS_F32))
 
     # K2 on the k-space of 128x128 slices. K2, K4 and K5 take microseconds,
     # less than the wrapper's host cost per call: their kernel_ms, plain_ms
@@ -493,6 +598,34 @@ def phase_rollout(torch, dev, ckpt_dir):
     return out
 
 
+def rollout_repeats(torch, dev, ckpt_dir, repeats=ROLLOUT_REPEATS):
+    """The rollout phase's one-slice rollout, repeated: a run takes tens of
+    milliseconds of mostly host time, which swings by a fifth between
+    single runs, so the median and quartiles of ``repeats`` runs are what
+    two trees are compared by."""
+    import statistics
+    from dt4image_restoration_tpu_torch.data import make_mat_record
+    from dt4image_restoration_tpu_torch.env import (fixed_param_rollout,
+                                                    reset_from_mat)
+    from dt4image_restoration_tpu_torch.utils.loaders import load_denoiser
+
+    den = load_denoiser(os.path.join(ckpt_dir, "unet-nm.pt"), device=dev)
+    rec = make_mat_record(size=128, acceleration=4, noise_sigma=15.0, seed=0)
+    rates = []
+    for _ in range(repeats + 1):          # the first run warms up
+        state = reset_from_mat(rec, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fixed_param_rollout(den, state, MU, SIGMA_D, 30)
+        torch.cuda.synchronize()
+        rates.append(30 / (time.perf_counter() - t0))
+    q1, median, q3 = statistics.quantiles(rates[1:], n=4)
+    out = {"phase": "rollout_repeats", "repeats": repeats,
+           "admm_iters_per_s_b1": {"q1": q1, "median": median, "q3": q3}}
+    emit(out)
+    return out
+
+
 def _load_policy(cfg, ckpt_dir, device):
     """Random DT weights (seed 0) whose stop output T sits far below the
     0.5 threshold, so every episode runs its 30 steps on both devices."""
@@ -561,6 +694,67 @@ def phase_eval(torch, dev, ckpt_dir, dirs):
     if list(gpu["episode_len"]) != list(cpu["episode_len"]) \
             or out["check_reward_diff_db"] > 0.05:
         raise AssertionError("evaluation on the card disagrees with the CPU")
+    return {**out, "rewards": m["reward"]}
+
+
+def phase_eval_bf16(torch, dev, ckpt_dir, dirs, f32):
+    """The eval phase's 63 slices x 30 steps with ``--dtype bfloat16`` and
+    U-Net mode ``pallas`` (the bfloat16 K1, K2, K3), against the float32
+    eval (``f32``, phase_eval's result) and, on two slices, against the
+    CPU in bfloat16."""
+    from dt4image_restoration_tpu_torch.config import ModelConfig
+    from dt4image_restoration_tpu_torch.data import EvaluationDataset
+    from dt4image_restoration_tpu_torch.inference import Evaluator
+    from dt4image_restoration_tpu_torch.utils.loaders import load_denoiser
+
+    cfg = ModelConfig(block_size=18, n_embeds=9, mode="norm",
+                      dtype="bfloat16")
+    unet_path = os.path.join(ckpt_dir, "unet-nm.pt")
+
+    def evaluator(device):
+        return Evaluator(dt=_load_policy(cfg, ckpt_dir, device),
+                         denoise=load_denoiser(unet_path, device=device,
+                                               dtype="bfloat16",
+                                               packed="pallas"),
+                         cfg=cfg, max_timesteps=30, rtg_target=10.0,
+                         device=device)
+
+    ev = evaluator(dev)
+    ev.run(dirs)
+    m = ev.last_metrics
+    records = [EvaluationDataset(d, 10.0)[0] for d in dirs[:2]]
+    gpu = ev.evaluate_records(records)
+    cpu = evaluator("cpu").evaluate_records(records)
+    out = {"phase": "eval_bf16", "nvidia_smi": nvidia_smi(),
+           "images": len(m["reward"]), "unet_packed": "pallas",
+           "avg_reward_db": float(m["reward"].mean()),
+           "avg_reward_f32_db": f32["avg_reward_db"],
+           "avg_reward_diff_db": float(m["reward"].mean())
+           - f32["avg_reward_db"],
+           "max_slice_diff_db": float(abs(m["reward"]
+                                          - f32["rewards"]).max()),
+           "avg_episode_len": float(m["episode_len"].mean()),
+           "wall_s": m["wall_time_s"],
+           "policy_steps_per_s": float(m["episode_len"].sum())
+           / m["wall_time_s"],
+           "policy_steps_per_s_f32": f32["policy_steps_per_s"],
+           "check_episode_len_gpu": gpu["episode_len"].tolist(),
+           "check_episode_len_cpu": cpu["episode_len"].tolist(),
+           "check_reward_diff_db": float(
+               abs(gpu["reward"] - cpu["reward"]).max()),
+           "band_db": EVAL_BF16_DB}
+    emit(out)
+    if len(m["reward"]) != EVAL_BATCH \
+            or not all(map(math.isfinite, m["reward"])):
+        raise AssertionError(f"bfloat16 evaluation returned {m['reward']}")
+    if abs(out["avg_reward_diff_db"]) > EVAL_BF16_DB:
+        raise AssertionError(
+            f"bfloat16 evaluation's mean reward is {out['avg_reward_diff_db']}"
+            f" dB off the float32 one (band {EVAL_BF16_DB} dB)")
+    if list(gpu["episode_len"]) != list(cpu["episode_len"]) \
+            or out["check_reward_diff_db"] > EVAL_BF16_DB:
+        raise AssertionError("bfloat16 evaluation on the card disagrees "
+                             "with the CPU")
     return out
 
 
@@ -578,11 +772,13 @@ def search_records(dirs):
 
 
 def _search(torch, device, ckpt_dir, mcts_cfg, record_trace=False,
-            block_size=18, backend="host", value=None, **kw):
+            block_size=18, backend="host", value=None, dtype="float32",
+            **kw):
     """The CLI's search (``mcts`` verb) on random weights: the per-op
     policy with K4 and K5, the proxy scorer (or ``value``, a batched
     scorer, with its per-image twin for the host backend), on the
-    host-tree backend or the device-resident one."""
+    host-tree backend or the device-resident one; policy and denoiser
+    compute in ``dtype`` (``--dtype``)."""
     from dt4image_restoration_tpu_torch.config import ModelConfig
     from dt4image_restoration_tpu_torch.inference import (BatchedMCTS,
                                                           DeviceMCTS)
@@ -590,12 +786,12 @@ def _search(torch, device, ckpt_dir, mcts_cfg, record_trace=False,
         proxy_value_fn, proxy_value_fn_batched)
     from dt4image_restoration_tpu_torch.utils.loaders import load_denoiser
     cfg = ModelConfig(block_size=block_size, n_embeds=9, mode="norm",
-                      use_pallas=True)
+                      use_pallas=True, dtype=dtype)
     value_fn = proxy_value_fn if value is None else host_twin(torch, value)
     common = dict(
         dt=_load_policy(cfg, ckpt_dir, device),
         denoise=load_denoiser(os.path.join(ckpt_dir, "unet-nm.pt"),
-                              device=device),
+                              device=device, dtype=dtype),
         model_cfg=cfg, cfg=mcts_cfg, value_fn=value_fn,
         record_trace=record_trace, device=device)
     if backend == "host":
@@ -775,9 +971,95 @@ def phase_mcts(torch, dev, ckpt_dir, dirs, kernels):
     return backends["host"]["launches"], backends["device"]["launches"]
 
 
+def phase_mcts_bf16(torch, dev, ckpt_dir, dirs, kernels):
+    """A device-backend search of 16 trees x 3 rounds with ``--dtype
+    bfloat16`` (the bfloat16 K1, K2, K4, K5; proxy scorer), launches
+    counted over it alone, after a 1-round search that warms the bfloat16
+    path up. Its tree-iterations/s are those of rounds 1 and 2: the
+    3-round search's wall less that of a 1-round search, so that neither
+    the set-up of the trees nor round 0 counts (``wall_s`` keeps them).
+    Returns the launches."""
+    from dt4image_restoration_tpu_torch.config import MCTSConfig
+    records, seeds = search_records(dirs)
+    printed = io.StringIO()
+    kw = dict(backend="device", dtype="bfloat16")
+    warm = _search(torch, dev, ckpt_dir, MCTSConfig(iterations=1), **kw)
+    with contextlib.redirect_stdout(printed):
+        warm.run_batch(records, seeds=seeds)
+    mcts_cfg = MCTSConfig(iterations=3)
+    mcts = _search(torch, dev, ckpt_dir, mcts_cfg, **kw)
+    rewards, wall, counts, peak = timed_search(torch, mcts, records, seeds,
+                                               kernels, printed)
+    one = _search(torch, dev, ckpt_dir, MCTSConfig(iterations=1), **kw)
+    wall_1 = timed_search(torch, one, records, seeds, kernels, printed)[1]
+    emit({"phase": "mcts_bf16", "nvidia_smi": nvidia_smi(),
+          "trees": len(records), "iterations": mcts_cfg.iterations,
+          "wall_s": wall, "wall_1_round_s": wall_1,
+          "tree_iterations_per_s": len(records)
+          * (mcts_cfg.iterations - 1) / (wall - wall_1),
+          "tree_iterations_per_s_with_set_up": len(records)
+          * mcts_cfg.iterations / wall,
+          "mean_best_psnr_db": sum(rewards) / len(rewards),
+          "peak_memory_mb": peak, "launches": counts})
+    if len(rewards) != SEARCH_BATCH or not all(map(math.isfinite, rewards)):
+        raise AssertionError(f"bfloat16 search returned {rewards}")
+    return counts
+
+
+def phase_unet_modes(torch, dev):
+    """One denoiser forward at B=63 on 128x128 slices (random weights,
+    seed 0) in every ``--unet_packed`` mode x dtype: device ms (CUDA
+    events, after a warm-up) and the error against the direct float32
+    forward, held to the U-Net band (float32) and the JAX package's
+    bfloat16 rule."""
+    from dt4image_restoration_tpu_torch.models import (UNetDenoiser,
+                                                       random_unet_state_dict)
+    from dt4image_restoration_tpu_torch.models.unet import UNET_MODES
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.rand((EVAL_BATCH, 1, 128, 128), generator=gen, device=dev)
+    sigma = torch.full((EVAL_BATCH,), SIGMA_D, device=dev)
+    sd = random_unet_state_dict(0)
+    outs, ms = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        for mode in UNET_MODES:
+            den = UNetDenoiser(dtype=dtype, packed=mode)
+            den.load_state_dict(sd)
+            den = den.eval().requires_grad_(False).to(dev)
+            with torch.no_grad():
+                outs[dtype, mode] = den(x, sigma)
+                ms[dtype, mode] = time_ms(torch, lambda: den(x, sigma), 3,
+                                          warmup=1)
+    ref = outs["float32", "none"]
+    base16 = float((outs["bfloat16", "none"] - ref).abs().mean())
+    rows, failed = [], []
+    for (dtype, mode), out in outs.items():
+        diff = (out - ref).abs()
+        row = {"dtype": dtype, "mode": mode, "device_ms": ms[dtype, mode],
+               "max_abs_err": float(diff.max()),
+               "mean_abs_err": float(diff.mean())}
+        if dtype == "float32":
+            lo, rel = UNET_F32_BAND
+            ok = bool((diff <= lo + rel * ref.abs()).all())
+        else:
+            k, lo = UNET_BF16_RULE
+            row["mean_abs_err_limit"] = k * base16 + lo
+            ok = row["mean_abs_err"] <= row["mean_abs_err_limit"]
+        rows.append(row)
+        if not ok:
+            failed.append(row)
+    emit({"phase": "unet_modes", "nvidia_smi": nvidia_smi(),
+          "batch": EVAL_BATCH, "f32_band": list(UNET_F32_BAND),
+          "bf16_rule": list(UNET_BF16_RULE), "modes": rows})
+    if failed:
+        raise AssertionError(f"U-Net modes off the band: {failed}")
+    return rows
+
+
 def phase_arniqa(torch, dev, dirs):
     """ARNIQA (random hub-layout weights, seed 0) scores of 16 slices on
-    the card and on the CPU."""
+    the card and on the CPU, and on the card in bfloat16 (the ``mcts``
+    verb's scorer under ``--dtype bfloat16``) against the CPU's float32
+    scores within the JAX package's bfloat16 band, 0.05 max(1, |score|)."""
     import numpy as np
 
     from dt4image_restoration_tpu_torch.models import (
@@ -799,15 +1081,25 @@ def phase_arniqa(torch, dev, dirs):
         if device != "cpu":
             torch.cuda.synchronize()
         scores[f"{device}_s"] = time.perf_counter() - t0
+        if device != "cpu":
+            scores["bf16"] = score_images(model, x.to(device),
+                                          dtype="bfloat16").cpu()
     diff = float((scores[str(dev)] - scores["cpu"]).abs().max())
+    bf16_off = (scores["bf16"] - scores["cpu"]).abs()
+    bf16_band = 0.05 * scores["cpu"].abs().clamp_min(1.0)
     out = {"phase": "arniqa", "images": len(records),
            "score_mean": float(scores["cpu"].mean()),
            "max_abs_diff": diff, "tolerance": 1e-4,
+           "bf16_max_abs_diff": float(bf16_off.max()),
            "wall_s_gpu": scores[f"{dev}_s"], "wall_s_cpu": scores["cpu_s"]}
     emit(out)
     if not diff <= 1e-4:
         raise AssertionError(f"ARNIQA on the card differs from the CPU by "
                              f"{diff}")
+    if not bool((bf16_off <= bf16_band).all()):
+        raise AssertionError(f"bfloat16 ARNIQA on the card is "
+                             f"{float(bf16_off.max())} off the float32 "
+                             "scores")
     return out
 
 
@@ -1326,11 +1618,18 @@ def main() -> int:
         kernels.reset_launch_counts()
         phase_rollout(torch, dev, ckpt_dir)
         paths["rollout"] = kernels.launch_counts()
+        rollout_repeats(torch, dev, ckpt_dir)
         kernels.reset_launch_counts()
-        phase_eval(torch, dev, ckpt_dir, dirs)
+        f32_eval = phase_eval(torch, dev, ckpt_dir, dirs)
         paths["eval"] = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        phase_eval_bf16(torch, dev, ckpt_dir, dirs, f32_eval)
+        paths["eval_bf16"] = kernels.launch_counts()
         paths["mcts"], paths["mcts_device"] = phase_mcts(
             torch, dev, ckpt_dir, dirs, kernels)
+        paths["mcts_bf16"] = phase_mcts_bf16(torch, dev, ckpt_dir, dirs,
+                                             kernels)
+        phase_unet_modes(torch, dev)
         phase_arniqa(torch, dev, dirs)
         paths.update(phase_serve(torch, dev, ckpt_dir, kernels))
         paths["train"] = phase_train(torch, dev, tmp, kernels)
@@ -1340,9 +1639,13 @@ def main() -> int:
         raise AssertionError(f"the train path launched kernels: "
                              f"{paths['train']}")
     search = ("conv_block", "kspace", "attention", "layernorm")
+    search16 = ("conv_block_bf16",) + search[1:]
     for path, want in (("rollout", ("conv_block", "kspace")),
                        ("eval", ("conv_block", "kspace", "dt_decode")),
+                       ("eval_bf16", ("conv_block_bf16", "kspace",
+                                      "dt_decode")),
                        ("mcts", search), ("mcts_device", search),
+                       ("mcts_bf16", search16),
                        ("serve_policy", ("conv_block", "kspace",
                                          "dt_decode")),
                        ("serve_fixed", ("conv_block", "kspace")),
@@ -1350,6 +1653,12 @@ def main() -> int:
         missing = [k for k in want if paths[path][k] <= 0]
         if missing:
             raise AssertionError(f"the {path} path launched no {missing}")
+    # Each dtype runs its own K1 and never the other's.
+    mixed = [p for p, c in paths.items()
+             if c["conv_block" if p.endswith("_bf16")
+                  else "conv_block_bf16"] > 0]
+    if mixed:
+        raise AssertionError(f"paths that ran the other dtype's K1: {mixed}")
 
     summary = []
     for name in kernels.KERNEL_MODULES:

@@ -22,6 +22,12 @@ scorer; its tree lives on the device (``--tree_backend device``, the
 default, with ``--node_dtype``) or on the host (``--tree_backend host``,
 and ``--sequential``, one image at a time). K4 takes every
 ``--block_size`` that ``max_timestep`` 30 allows.
+``eval``, ``flex`` and ``mcts`` take ``--dtype bfloat16`` (the policy, the
+denoiser and the ARNIQA scorer compute in bfloat16; the ADMM state stays
+float32) and ``--unet_packed`` (the U-Net's execution mode; every mode runs
+the same weights). The port's default mode is ``pallas``, the U-Net's two
+full-resolution blocks as kernel K1 (in bfloat16 under ``--dtype
+bfloat16``); the JAX CLI's default is ``none``.
 ``train`` reads trajectory jsons and an HDF5 state file (h5py), trains the
 Decision Transformer without the kernels (they have no backward), and
 writes ``model_<epoch>.pt`` in the reference's layout (which ``eval
@@ -37,6 +43,7 @@ import os
 import sys
 
 from .config import EVAL_DIR_TOKENS
+from .models.unet import UNET_MODES
 
 EVAL_DIRS_9 = [f"evaluation/image_dir/vanilla/{t}/" for t in EVAL_DIR_TOKENS]
 EVAL_DIRS_6 = EVAL_DIRS_9[:6]
@@ -102,8 +109,23 @@ def build_parser() -> argparse.ArgumentParser:
                        help="re-root the default eval dir list "
                             "(evaluation/image_dir/vanilla/{A}_{S}) under "
                             "this path; ignored when --data_dirs is given")
-        s.add_argument("--dtype", default="float32", choices=["float32"],
-                       help="compute dtype (the port's kernels are float32)")
+        s.add_argument("--dtype", default="float32",
+                       choices=["float32", "bfloat16"],
+                       help="compute dtype of the DT, the denoiser and the "
+                            "value model (the reference's autocast policy); "
+                            "parameters and the ADMM state stay float32")
+        s.add_argument("--unet_packed", default="pallas",
+                       choices=list(UNET_MODES),
+                       help="U-Net execution: 'none' = direct convs; "
+                            "'s2d' = space-to-depth packed 128^2 stages; "
+                            "'pallas' (default) = each 128^2 stage as one "
+                            "launch of kernel K1; 'winograd' = every 3x3 "
+                            "block as Winograd F(2x2,3x3) products; "
+                            "'winograd_deep' = Winograd on the "
+                            ">=128-channel blocks only. The same weights "
+                            "in every mode, exact up to float "
+                            "reassociation (the JAX CLI's default is "
+                            "'none')")
         if name == "mcts":
             s.add_argument("--seed", type=int, default=0)
             s.add_argument("--arniqa_ckpt", default=None,
@@ -164,13 +186,14 @@ def _evaluate(args) -> None:
     # The per-op forward, where the Evaluator picks it, with kernels K4
     # (attention) and K5 (LayerNorm); the fused forward ignores the flag.
     cfg = ModelConfig(block_size=args.block_size, n_embeds=args.n_embeds,
-                      mode=mode, use_pallas=True)
+                      mode=mode, use_pallas=True, dtype=args.dtype)
     # The Evaluator chooses the forward from the config; say which.
+    run = f"dtype {args.dtype}, U-Net mode {args.unet_packed}"
     if fused_forward_takes(cfg):
-        print("policy forward: fused (kernel K3)", file=sys.stderr)
+        print(f"policy forward: fused (kernel K3); {run}", file=sys.stderr)
     else:
-        print(f"policy forward: per-op (kernels K4, K5); K3 takes up to "
-              f"{k3.MAX_TOKENS} tokens at embed_dim {k3.WIDTHS} with "
+        print(f"policy forward: per-op (kernels K4, K5); {run}; K3 takes up "
+              f"to {k3.MAX_TOKENS} tokens at embed_dim {k3.WIDTHS} with "
               f"{k3.CLUSTER} heads, this config has "
               f"{3 * cfg.context_length} tokens at embed_dim "
               f"{cfg.embed_dim} with {cfg.n_heads} heads", file=sys.stderr)
@@ -178,7 +201,8 @@ def _evaluate(args) -> None:
         args, EVAL_DIRS_6 if args.mode == "flex" else EVAL_DIRS_9))
     targets = FLEX_RTGS if args.mode == "flex" else [float(args.rtg)]
     dt = load_dt(cfg, args.checkpoint, device=args.device)
-    denoiser = load_denoiser(args.denoiser_ckpt, device=args.device)
+    denoiser = load_denoiser(args.denoiser_ckpt, device=args.device,
+                             dtype=args.dtype, packed=args.unet_packed)
     for rtg in targets:
         evaluator = Evaluator(dt=dt, denoise=denoiser, cfg=cfg,
                               max_timesteps=args.max_timesteps or 30,
@@ -203,13 +227,18 @@ def _search(args) -> None:
     rtg_target = float(args.rtg)
     # The per-op forward with kernels K4 (attention) and K5 (LayerNorm).
     cfg = ModelConfig(block_size=args.block_size, n_embeds=args.n_embeds,
-                      mode="norm", use_pallas=True)
+                      mode="norm", use_pallas=True, dtype=args.dtype)
+    print(f"policy forward: per-op (kernels K4, K5); dtype {args.dtype}, "
+          f"U-Net mode {args.unet_packed}", file=sys.stderr)
     dt = load_dt(cfg, args.checkpoint, device=args.device)
-    denoiser = load_denoiser(args.denoiser_ckpt, device=args.device)
+    denoiser = load_denoiser(args.denoiser_ckpt, device=args.device,
+                             dtype=args.dtype, packed=args.unet_packed)
     if args.arniqa_ckpt and os.path.exists(args.arniqa_ckpt):
+        # The reference's autocast also wraps the ARNIQA scoring.
         arniqa = load_arniqa(args.arniqa_ckpt, args.device)
-        value_fn = make_value_fn(arniqa, cfg.image_size)
-        value_fn_batched = make_value_fn_batched(arniqa, cfg.image_size)
+        value_fn = make_value_fn(arniqa, cfg.image_size, args.dtype)
+        value_fn_batched = make_value_fn_batched(arniqa, cfg.image_size,
+                                                 args.dtype)
     else:
         print("WARNING: no ARNIQA checkpoint; using the documented no-ref "
               "proxy scorer", file=sys.stderr)

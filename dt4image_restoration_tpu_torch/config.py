@@ -43,6 +43,11 @@ class ModelConfig:
     embd_dropout: float = 0.1    # on the summed input embeddings
     mode: str = "norm"           # 'norm' (optimal) or 'flex'
     image_size: int = IMAGE_SIZE
+    # Compute dtype of the projections and the state encoder ('float32' or
+    # 'bfloat16'); parameters, LayerNorms, attention and the heads stay
+    # float32. Inference only: the trainer refuses 'bfloat16' (its own
+    # --dtype runs autocast).
+    dtype: str = "float32"
     # The per-op forward's attention and LayerNorms run the hand-written
     # kernels K4 and K5 (ops/kernels/attention.py, layernorm.py).
     use_pallas: bool = False

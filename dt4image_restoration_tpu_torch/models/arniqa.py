@@ -19,6 +19,12 @@ maps the KADID-10k MOS range onto [0, 1]. This module provides:
     device-resident search (``inference/mcts_device.py``), which scores a
     batch of leaves in one call without a trip to the host;
   * ``random_arniqa_state_dict``: hub-layout random weights from a seed.
+
+The scorers take a compute ``dtype`` (the CLI's ``--dtype``, the
+reference's autocast around ARNIQA): under bfloat16 the ResNet-50's convs
+run in bfloat16 and its BatchNorms compute in float32 and round to
+bfloat16, as the JAX model's do; the pooling, the normalisation and the
+regressor stay float32.
 """
 from __future__ import annotations
 
@@ -28,6 +34,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from .precision import compute_dtype, conv2d
 
 KADID_RANGE = (1.0, 5.0)  # MOS range used by scale_score
 RESNET50_STAGES = (3, 4, 6, 3)
@@ -52,12 +60,20 @@ class Bottleneck(nn.Module):
                       bias=False),
             nn.BatchNorm2d(4 * features)) if downsample else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
-        res = x if self.downsample is None else self.downsample(x)
+    def forward(self, x: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        y = F.relu(_bn(self.bn1, conv2d(self.conv1, x, dtype)))
+        y = F.relu(_bn(self.bn2, conv2d(self.conv2, y, dtype)))
+        y = _bn(self.bn3, conv2d(self.conv3, y, dtype))
+        res = x if self.downsample is None else _bn(
+            self.downsample[1], conv2d(self.downsample[0], x, dtype))
         return F.relu(y + res)
+
+
+def _bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """Eval-mode BatchNorm computed in float32 and returned in the dtype of
+    ``x`` (Flax's ``BatchNorm(dtype=...)``)."""
+    return bn(x.float()).to(x.dtype)
 
 
 class ResNet50(nn.Module):
@@ -78,12 +94,15 @@ class ResNet50(nn.Module):
                 c_in = 4 * feats
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(x)))
+    def forward(self, x: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Features in float32, computed in ``dtype``."""
+        x = F.relu(_bn(self.bn1, conv2d(self.conv1, x, dtype)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for stage in range(len(RESNET50_STAGES)):
-            x = getattr(self, f"layer{stage + 1}")(x)
-        return x.mean(dim=(2, 3))
+            for block in getattr(self, f"layer{stage + 1}"):
+                x = block(x, dtype)
+        return x.float().mean(dim=(2, 3))
 
 
 class ARNIQA(nn.Module):
@@ -96,9 +115,10 @@ class ARNIQA(nn.Module):
         self.regressor = nn.Linear(2 * 2048, 1)
 
     def forward(self, img: torch.Tensor, img_ds: torch.Tensor,
-                scale_score: bool = True) -> torch.Tensor:
+                scale_score: bool = True,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
         enc = self.encoder["model"]
-        f = torch.cat([enc(img), enc(img_ds)], dim=-1)
+        f = torch.cat([enc(img, dtype), enc(img_ds, dtype)], dim=-1)
         f = f / f.norm(dim=-1, keepdim=True).clamp_min(1e-12)
         score = self.regressor(f)[:, 0]
         if scale_score:
@@ -108,41 +128,45 @@ class ARNIQA(nn.Module):
 
 
 @torch.no_grad()
-def score_images(model: ARNIQA, x: torch.Tensor, image_size: int = 128
-                 ) -> torch.Tensor:
-    """Scaled ARNIQA scores of (B, H, W) greyscale images in [0, 1] -> (B,).
-    The image goes in as (x, 0, 0) "RGB"; the half scale is an antialiased
-    bilinear resize to ``image_size // 2``."""
+def score_images(model: ARNIQA, x: torch.Tensor, image_size: int = 128,
+                 dtype="float32") -> torch.Tensor:
+    """Scaled ARNIQA scores of (B, H, W) greyscale images in [0, 1] -> (B,)
+    float32, the encoder computing in ``dtype``. The image goes in as
+    (x, 0, 0) "RGB"; the half scale is an antialiased bilinear resize to
+    ``image_size // 2``."""
     zeros = torch.zeros_like(x)
     rgb = torch.stack([x, zeros, zeros], dim=1)
     half = F.interpolate(rgb, size=(image_size // 2, image_size // 2),
                          mode="bilinear", align_corners=False,
                          antialias=True)
-    return model(rgb, half, scale_score=True)
+    return model(rgb, half, scale_score=True, dtype=compute_dtype(dtype))
 
 
-def make_value_fn(model: ARNIQA, image_size: int = 128
+def make_value_fn(model: ARNIQA, image_size: int = 128, dtype="float32"
                   ) -> Callable[[np.ndarray], float]:
     """The search's value function: one (1, H, W) image (array or tensor)
-    -> its ARNIQA score, computed on the device of ``model``."""
+    -> its ARNIQA score, computed on the device of ``model`` in
+    ``dtype``."""
     model.eval()
     dev = next(model.parameters()).device
 
     def value(x) -> float:
         img = torch.as_tensor(np.asarray(x, np.float32), device=dev)
         return float(score_images(model, img.reshape(1, *img.shape[-2:]),
-                                  image_size)[0])
+                                  image_size, dtype)[0])
     return value
 
 
-def make_value_fn_batched(model: ARNIQA, image_size: int = 128
+def make_value_fn_batched(model: ARNIQA, image_size: int = 128,
+                          dtype="float32"
                           ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Batched twin of :func:`make_value_fn`: (B, H, W) images in [0, 1] on
-    the device of ``model`` -> (B,) ARNIQA scores, left on that device."""
+    the device of ``model`` -> (B,) ARNIQA scores in float32, left on that
+    device."""
     model.eval()
 
     def value(x: torch.Tensor) -> torch.Tensor:
-        return score_images(model, x.float(), image_size)
+        return score_images(model, x.float(), image_size, dtype)
     return value
 
 

@@ -29,6 +29,15 @@ forwards over the same weights, as in the JAX package:
 
 Every kernel runs its plain PyTorch version on the CPU. Training runs the
 per-op forward without the kernels: K3, K4 and K5 have no backward.
+
+``cfg.dtype='bfloat16'`` computes at the JAX model's sites in bfloat16: the
+four projections of every block (``qkv_proj``, ``o_proj``, ``fc``,
+``fc_proj``) and the state encoder's convs and dense layer. Parameters,
+LayerNorms (K5), attention (K4, on float32 q, k, v), the embeddings and the
+heads stay float32; a block's output is its ``fc_proj`` output, so from the
+second block on the residual stream is bfloat16, as in the JAX model. The
+fused forward runs the state encoder in bfloat16 and the token stack in
+float32 (K3), as the JAX ``make_fused_dt_apply`` does.
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ from ..ops.kernels.transformer import MAX_TOKENS as DT_KERNEL_MAX_TOKENS
 from ..ops.kernels.transformer import WIDTHS as DT_KERNEL_WIDTHS
 from ..ops.kernels.transformer import (fused_dt_decode, pack_dt_fragments,
                                        pack_dt_weights)
+from .precision import compute_dtype, conv2d, linear
 
 SIGMA_D_SCALE = 70.0 / 255.0
 
@@ -103,21 +113,24 @@ class StateEncoder(nn.Module):
         self.conv1 = nn.Conv2d(8, 16, 4, stride=2)
         self.conv2 = nn.Conv2d(16, 16, 3, stride=1)
         self.dense = nn.Linear(16 * hw * hw, cfg.embed_dim)
+        self.dtype = compute_dtype(cfg.dtype)
 
     def forward(self, states: torch.Tensor) -> torch.Tensor:
+        """(B, T, S) -> (B, T, E) in the compute dtype."""
         b, t, _ = states.shape
-        s = self.image_size
+        s, dt = self.image_size, self.dtype
         x = states.reshape(b * t, 1, s, s)
-        x = torch.relu(self.conv0(x))
-        x = torch.relu(self.conv1(x))
-        x = torch.relu(self.conv2(x))
-        x = torch.tanh(self.dense(x.reshape(b * t, -1)))
+        x = torch.relu(conv2d(self.conv0, x, dt))
+        x = torch.relu(conv2d(self.conv1, x, dt))
+        x = torch.relu(conv2d(self.conv2, x, dt))
+        x = torch.tanh(linear(self.dense, x.reshape(b * t, -1), dt))
         return x.reshape(b, t, -1)
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last axis with torch's parameter names; kernel K5
-    when ``use_pallas``, else the plain two-pass version."""
+    """LayerNorm over the last axis with torch's parameter names, in
+    float32 whatever the input's dtype; kernel K5 when ``use_pallas``, else
+    the plain two-pass version."""
 
     def __init__(self, embed_dim: int, use_pallas: bool = False):
         super().__init__()
@@ -127,7 +140,7 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         norm = layernorm if self.use_pallas else layernorm_plain
-        return norm(x, self.weight, self.bias, LN_EPS)
+        return norm(x.float(), self.weight, self.bias, LN_EPS)
 
 
 class Attention(nn.Module):
@@ -144,15 +157,17 @@ class Attention(nn.Module):
         self.o_proj = nn.Linear(e, e)
         self.dropout = cfg.dropout
         self.dropout_generator: Optional[torch.Generator] = None
+        self.dtype = compute_dtype(cfg.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, e = x.shape
         h = self.n_heads
-        # Views of the (B, T, 3E) projection; K4 reads them as they are and
-        # returns the (B, H, T, D) view of a (B, T, H, D) buffer, so the
-        # merge of the heads below is a view too.
+        # Views of the (B, T, 3E) projection, in float32; K4 reads them as
+        # they are and returns the (B, H, T, D) view of a (B, T, H, D)
+        # buffer, so the merge of the heads below is a view too.
+        qkv = linear(self.qkv_proj, x, self.dtype).float()
         q, k, v = (a.reshape(b, t, h, e // h).transpose(1, 2)
-                   for a in self.qkv_proj(x).split(e, dim=-1))
+                   for a in qkv.split(e, dim=-1))
         if self.use_pallas and not self.training:
             y = fused_causal_attention(q, k, v)
         else:
@@ -163,7 +178,8 @@ class Attention(nn.Module):
                                 dim=-1)
             y = dropout(att, self.dropout, self.training,
                         self.dropout_generator) @ v
-        return dropout(self.o_proj(y.transpose(1, 2).reshape(b, t, e)),
+        return dropout(linear(self.o_proj, y.transpose(1, 2).reshape(b, t, e),
+                              self.dtype),
                        self.dropout, self.training, self.dropout_generator)
 
 
@@ -182,11 +198,13 @@ class Block(nn.Module):
         self.fc_proj = nn.Linear(4 * e, e)
         self.dropout = cfg.dropout
         self.dropout_generator: Optional[torch.Generator] = None
+        self.dtype = compute_dtype(cfg.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
-        return dropout(self.fc_proj(F.gelu(self.fc(self.ln2(x)))),
-                       self.dropout, self.training, self.dropout_generator)
+        h = F.gelu(linear(self.fc, self.ln2(x), self.dtype))
+        return dropout(linear(self.fc_proj, h, self.dtype), self.dropout,
+                       self.training, self.dropout_generator)
 
 
 class DecisionTransformer(nn.Module):

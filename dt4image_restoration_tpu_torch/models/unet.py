@@ -7,64 +7,125 @@ semantics: encoder of 3-layer 3x3 LeakyReLU(0.2) blocks with 2x2 max-pool
 and a residual add of the image channel. ``UNetDenoiser`` adds the constant
 sigma noise-map channel and clamps the output to [0, 1].
 
-The two full-resolution blocks (``inc`` and ``up4``) run as one fused
-kernel each (K1, :mod:`..ops.kernels.conv_block`; its plain version on the
-CPU). The other seven blocks run ``torch.nn.functional.conv2d``. A block
-whose spatial size is odd or below 2 runs the plain conv chain on any
-device, the same shape rule as the JAX package's fused modes.
+``dtype`` is the compute dtype (float32 parameters): under bfloat16 the
+convs, pooling, upsampling, concats and the 1x1 head run in bfloat16, the
+residual add of the float32 input image in float32, then the clamp, as in
+the JAX model. ``packed`` is the execution mode of the JAX CLI's
+``--unet_packed``; :meth:`UNet._block_packed` maps it onto the blocks as
+the JAX model does:
+
+  * ``none``: ``F.conv2d`` everywhere;
+  * ``s2d``: space-to-depth cells (``ops/image.py``), ``dense`` on inc and
+    ``shift`` on up4 (float32 only; under bfloat16 up4 stays direct);
+  * ``pallas`` (the port's default): inc and up4 each as one launch of
+    kernel K1 (:mod:`..ops.kernels.conv_block`; the bfloat16 K1 under
+    bfloat16; its plain version on the CPU);
+  * ``winograd``: every block by Winograd F(2x2, 3x3) (``ops/winograd.py``);
+  * ``winograd_deep``: Winograd on down2, down3, down4, up1 and up2.
+
+A block whose spatial size is odd or below 2 runs the direct convs in
+every mode, the JAX package's shape rule. Every mode runs the same
+``state_dict``.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.image import bilinear_upsample_2x
+from ..ops.image import (bilinear_upsample_2x, depth_to_space,
+                         pack_conv_bias, pack_conv_weights, repad_cells,
+                         space_to_depth, space_to_depth_shifted)
 from ..ops.kernels.conv_block import (PackedConvBlock, conv_block,
                                       pack_conv_block)
+from ..ops.winograd import winograd_apply, winograd_weights
+from .precision import compute_dtype, conv2d
 
 NEGATIVE_SLOPE = 0.2
+# The U-Net's execution modes (--unet_packed) and a block's.
+UNET_MODES = ("none", "s2d", "pallas", "winograd", "winograd_deep")
+BLOCK_MODES = (None, "dense", "shift", "pallas", "winograd")
 
 
 class ConvBlock(nn.Module):
-    """``num_layer`` x [3x3 conv (pad 1) + LeakyReLU(0.2)]; ``fused`` runs
-    the whole block as kernel K1."""
+    """``num_layer`` x [3x3 conv (pad 1) + LeakyReLU(0.2)] in ``dtype``,
+    executed as ``packed`` says: None (direct convs), ``'dense'`` or
+    ``'shift'`` (space-to-depth cells), ``'pallas'`` (kernel K1) or
+    ``'winograd'``."""
 
     def __init__(self, in_channels: int, features: int, num_layer: int = 3,
-                 fused: bool = False):
+                 dtype: Union[str, torch.dtype] = torch.float32,
+                 packed: Optional[str] = None):
         super().__init__()
+        if packed not in BLOCK_MODES:
+            raise ValueError(f"block mode must be one of {BLOCK_MODES}, got "
+                             f"{packed!r}")
         self.num_layer = num_layer
-        self.fused = fused
+        self.dtype = compute_dtype(dtype)
+        self.packed = packed
         for i in range(num_layer):
             self.add_module(f"conv{i}", nn.Conv2d(
                 in_channels if i == 0 else features, features, 3, padding=1))
-        self._packed: Optional[PackedConvBlock] = None
-        self._packed_key = None
+        self._prepared = None
+        self._prepared_key = None
 
     def convs(self):
         return [getattr(self, f"conv{i}") for i in range(self.num_layer)]
 
-    def packed(self) -> PackedConvBlock:
-        """The weights in K1's layout, repacked only when a parameter
-        changed (in place or by reassignment)."""
+    def _weights(self, mode: str):
+        """The weights as ``mode`` runs them, in the compute dtype, remade
+        only when a parameter changed (in place or by reassignment)."""
         params = [t for c in self.convs() for t in (c.weight, c.bias)]
-        key = tuple((t.data_ptr(), t._version) for t in params)
-        if key != self._packed_key:
+        key = (mode, tuple((t.data_ptr(), t._version) for t in params))
+        if key != self._prepared_key:
+            dt, convs = self.dtype, self.convs()
             with torch.no_grad():
-                self._packed = pack_conv_block(
-                    [c.weight for c in self.convs()],
-                    [c.bias for c in self.convs()], layout="oihw")
-            self._packed_key = key
-        return self._packed
+                if mode == "pallas":
+                    prepared = pack_conv_block(
+                        [c.weight for c in convs], [c.bias for c in convs],
+                        layout="oihw", dtype=dt)
+                elif mode == "winograd":
+                    prepared = [(winograd_weights(c.weight.to(dt)),
+                                 c.bias.to(dt)) for c in convs]
+                else:
+                    prepared = [(pack_conv_weights(c.weight.to(dt), mode),
+                                 pack_conv_bias(c.bias.to(dt)))
+                                for c in convs]
+            self._prepared, self._prepared_key = prepared, key
+        return self._prepared
+
+    def packed_weights(self) -> PackedConvBlock:
+        """The weights in K1's layout for the compute dtype."""
+        return self._weights("pallas")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[-2:]
-        if self.fused and not (h % 2 or w % 2 or h < 2 or w < 2):
-            return conv_block(x, self.packed(), NEGATIVE_SLOPE)
+        mode, dt = self.packed, self.dtype
+        if mode and (h % 2 or w % 2 or h < 2 or w < 2):
+            mode = None
+        if mode == "pallas":
+            return conv_block(x.to(dt).contiguous(), self.packed_weights(),
+                              NEGATIVE_SLOPE)
+        if mode == "winograd":
+            y = x.to(dt)
+            for u, b in self._weights(mode):
+                y = F.leaky_relu(winograd_apply(y, u, b), NEGATIVE_SLOPE)
+            return y
+        if mode in ("dense", "shift"):
+            y = x.to(dt)
+            y = space_to_depth(y) if mode == "dense" \
+                else space_to_depth_shifted(y)
+            for i, (wp, bp) in enumerate(self._weights(mode)):
+                if mode == "shift" and i > 0:
+                    y = repad_cells(y)
+                y = F.leaky_relu(F.conv2d(y, wp, bp,
+                                          padding=1 if mode == "dense" else 0),
+                                 NEGATIVE_SLOPE)
+            return depth_to_space(y)
         for conv in self.convs():
-            x = F.leaky_relu(conv(x), NEGATIVE_SLOPE)
+            x = F.leaky_relu(conv2d(conv, x, dt), NEGATIVE_SLOPE)
         return x
 
 
@@ -79,23 +140,57 @@ def _pad_to_match(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
 
 
 class UNet(nn.Module):
-    """2-in (image + noise map) / 1-out residual U-Net on NCHW tensors."""
+    """2-in (image + noise map) / 1-out residual U-Net on NCHW tensors, in
+    compute ``dtype``, executed in mode ``packed`` (``UNET_MODES``)."""
+
+    # The >= 4 x base-channel blocks, where the JAX package's
+    # winograd_deep mode runs Winograd.
+    _DEEP_WINO_BLOCKS = ("down2", "down3", "down4", "up1", "up2")
 
     def __init__(self, in_channels: int = 2, out_channels: int = 1,
-                 base_channels: int = 32):
+                 base_channels: int = 32,
+                 dtype: Union[str, torch.dtype] = torch.float32,
+                 packed: str = "pallas"):
         super().__init__()
+        if packed not in UNET_MODES:
+            raise ValueError(f"U-Net mode must be one of {UNET_MODES}, got "
+                             f"{packed!r}")
         c = base_channels
         self.out_channels = out_channels
-        self.inc = ConvBlock(in_channels, c, fused=True)
-        self.down1 = ConvBlock(c, 2 * c)
-        self.down2 = ConvBlock(2 * c, 4 * c)
-        self.down3 = ConvBlock(4 * c, 8 * c)
-        self.down4 = ConvBlock(8 * c, 16 * c)
-        self.up1 = ConvBlock(16 * c + 8 * c, 8 * c)
-        self.up2 = ConvBlock(8 * c + 4 * c, 4 * c)
-        self.up3 = ConvBlock(4 * c + 2 * c, 2 * c)
-        self.up4 = ConvBlock(2 * c + c, c, fused=True)
+        self.dtype = compute_dtype(dtype)
+        self.packed = packed
+
+        def block(name, cin, feats):
+            return ConvBlock(cin, feats, dtype=self.dtype,
+                             packed=self._block_packed(name))
+
+        self.inc = block("inc", in_channels, c)
+        self.down1 = block("down1", c, 2 * c)
+        self.down2 = block("down2", 2 * c, 4 * c)
+        self.down3 = block("down3", 4 * c, 8 * c)
+        self.down4 = block("down4", 8 * c, 16 * c)
+        self.up1 = block("up1", 16 * c + 8 * c, 8 * c)
+        self.up2 = block("up2", 8 * c + 4 * c, 4 * c)
+        self.up3 = block("up3", 4 * c + 2 * c, 2 * c)
+        self.up4 = block("up4", 2 * c + c, c)
         self.outc = nn.Conv2d(c, out_channels, 1)
+
+    def _block_packed(self, name: str) -> Optional[str]:
+        """Block ``name``'s mode under the U-Net's mode (the JAX
+        ``UNet._block_packed``)."""
+        p = self.packed
+        if p == "winograd":
+            return "winograd"
+        if p == "winograd_deep":
+            return "winograd" if name in self._DEEP_WINO_BLOCKS else None
+        if name == "inc":
+            return {"pallas": "pallas", "s2d": "dense"}.get(p)
+        if name == "up4":
+            if p == "pallas":
+                return "pallas"
+            return "shift" if p == "s2d" and self.dtype == torch.float32 \
+                else None
+        return None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         noisy = x
@@ -113,16 +208,21 @@ class UNet(nn.Module):
         y = up(y, x3, self.up2)
         y = up(y, x2, self.up3)
         y = up(y, x1, self.up4)
-        return noisy[:, :self.out_channels] + self.outc(y)
+        return noisy[:, :self.out_channels] \
+            + conv2d(self.outc, y, self.dtype)
 
 
 class UNetDenoiser(nn.Module):
     """Frozen plug-in prior: ``(x (B, 1, H, W), sigma scalar or (B,))`` ->
-    clamped (B, 1, H, W)."""
+    clamped (B, 1, H, W), in the dtype of ``x`` whatever the compute
+    ``dtype``; ``packed`` is the U-Net's execution mode."""
 
-    def __init__(self, base_channels: int = 32):
+    def __init__(self, base_channels: int = 32,
+                 dtype: Union[str, torch.dtype] = torch.float32,
+                 packed: str = "pallas"):
         super().__init__()
-        self.net = UNet(base_channels=base_channels)
+        self.net = UNet(base_channels=base_channels, dtype=dtype,
+                        packed=packed)
 
     def forward(self, x: torch.Tensor, sigma) -> torch.Tensor:
         b, _, h, w = x.shape

@@ -3,6 +3,7 @@ PyTorch versions. Importing this package builds nothing: a kernel is
 compiled on its first CUDA call (see :mod:`._build`).
 
     K1 conv_block  <- ops/pallas/conv_block.py:fused_conv_block
+       conv_block_bf16 (the same TPU kernel on bfloat16 operands)
     K2 kspace      <- ops/pallas/kspace.py:kspace_consistency_pallas
     K3 transformer <- ops/pallas/transformer.py:fused_dt_decode
     K4 attention   <- ops/pallas/attention.py:fused_causal_attention
@@ -12,9 +13,11 @@ from __future__ import annotations
 
 from typing import Dict
 
-from . import attention, conv_block, kspace, layernorm, transformer
+from . import (attention, conv_block, conv_block_bf16, kspace, layernorm,
+               transformer)
 
-KERNEL_MODULES = {"conv_block": conv_block, "kspace": kspace,
+KERNEL_MODULES = {"conv_block": conv_block,
+                  "conv_block_bf16": conv_block_bf16, "kspace": kspace,
                   "dt_decode": transformer, "attention": attention,
                   "layernorm": layernorm}
 

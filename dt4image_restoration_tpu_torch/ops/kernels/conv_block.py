@@ -20,6 +20,9 @@ activations. See the source for the details.
 :func:`fused_conv_block` takes NHWC input and HWIO weights like the JAX
 function. :func:`conv_block_plain` is the plain PyTorch version: the same
 nine shifted tap products per layer, as float32 matmuls.
+
+A block packed with ``dtype=torch.bfloat16`` runs the bfloat16 K1 of
+:mod:`.conv_block_bf16` instead, through the same two calls.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from . import conv_block_bf16 as _bf16
 
 __all__ = ["PackedConvBlock", "conv_block", "conv_block_plain",
            "fused_conv_block", "pack_conv_block", "tf32_round"]
@@ -46,9 +50,11 @@ MAX_LAYERS = 4
 class PackedConvBlock:
     """A block's weights in the kernel's layout.
 
-    ``weights`` is one flat float32 buffer: layer 0 as (Cin, 3, 3, F), each
-    later layer as (F, 3, 3, F). ``biases`` is (L, F). ``tc_weights`` is
-    what the kernel reads: per layer, :func:`_fragments` of its weights.
+    ``weights`` is one flat buffer: layer 0 as (Cin, 3, 3, F), each later
+    layer as (F, 3, 3, F). ``biases`` is (L, F). ``tc_weights`` is what the
+    kernel reads: per layer, :func:`_fragments` of its weights. All three
+    are float32, or all three bfloat16 for the bfloat16 kernel (whose
+    ``tc_weights`` are :func:`.conv_block_bf16.fragments`).
     """
     weights: torch.Tensor
     biases: torch.Tensor
@@ -59,6 +65,10 @@ class PackedConvBlock:
     @property
     def layers(self) -> int:
         return self.biases.shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.weights.dtype
 
     def layer_weight(self, layer: int) -> torch.Tensor:
         """(Ci, 3, 3, F) view of one layer's weights."""
@@ -107,9 +117,13 @@ def _fragments(w: torch.Tensor) -> torch.Tensor:
 
 def pack_conv_block(weights: Sequence[torch.Tensor],
                     biases: Sequence[torch.Tensor],
-                    layout: str = "oihw") -> PackedConvBlock:
+                    layout: str = "oihw",
+                    dtype: torch.dtype = torch.float32) -> PackedConvBlock:
     """Pack per-layer 3x3 weights (``'oihw'``: torch (F, Ci, 3, 3);
-    ``'hwio'``: JAX (3, 3, Ci, F)) and (F,) biases."""
+    ``'hwio'``: JAX (3, 3, Ci, F)) and (F,) biases for the float32 kernel,
+    or rounded to bfloat16 for the bfloat16 one (``dtype``)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"conv_block packs float32 or bfloat16, not {dtype}")
     perm = {"oihw": (1, 2, 3, 0), "hwio": (2, 0, 1, 3)}[layout]
     ws = [w.permute(*perm).contiguous() for w in weights]
     cin, feats = ws[0].shape[0], ws[0].shape[-1]
@@ -118,18 +132,22 @@ def pack_conv_block(weights: Sequence[torch.Tensor],
         if tuple(w.shape) != want:
             raise ValueError(f"layer {i}: want {want} (Ci, 3, 3, F), "
                              f"got {tuple(w.shape)}")
+    frag = _fragments if dtype == torch.float32 else _bf16.fragments
     return PackedConvBlock(
-        weights=torch.cat([w.reshape(-1) for w in ws]),
-        biases=torch.stack(list(biases)).contiguous(),
+        weights=torch.cat([w.reshape(-1) for w in ws]).to(dtype),
+        biases=torch.stack(list(biases)).to(dtype).contiguous(),
         cin=cin, features=feats,
-        tc_weights=torch.cat([_fragments(w) for w in ws]))
+        tc_weights=torch.cat([frag(w) for w in ws]))
 
 
 def conv_block_plain(x: torch.Tensor, packed: PackedConvBlock,
                      negative_slope: float = 0.2) -> torch.Tensor:
     """Plain PyTorch version: per layer, the nine taps of the 3x3 SAME conv
     as shifted (Ci -> F) products summed in float32, then bias and
-    LeakyReLU. NCHW in, NCHW out."""
+    LeakyReLU. NCHW in, NCHW out. A bfloat16 block runs
+    :func:`.conv_block_bf16.conv_block_bf16_plain`."""
+    if packed.dtype == torch.bfloat16:
+        return _bf16.conv_block_bf16_plain(x, packed, negative_slope)
     for layer in range(packed.layers):
         w = packed.layer_weight(layer)
         _, _, h, wd = x.shape
@@ -159,8 +177,11 @@ def _lib():
 def conv_block(x: torch.Tensor, packed: PackedConvBlock,
                negative_slope: float = 0.2) -> torch.Tensor:
     """L x [3x3 SAME conv + bias + LeakyReLU] on NCHW float32 ``x``
-    (B, Cin, H, W) -> (B, F, H, W)."""
+    (B, Cin, H, W) -> (B, F, H, W); a block packed in bfloat16 runs
+    :func:`.conv_block_bf16.conv_block_bf16` on bfloat16 ``x``."""
     global launches
+    if packed.dtype == torch.bfloat16:
+        return _bf16.conv_block_bf16(x, packed, negative_slope)
     if x.device.type == "cpu":
         return conv_block_plain(x, packed, negative_slope)
     if x.device.type != "cuda":
@@ -203,8 +224,9 @@ def fused_conv_block(x: torch.Tensor, weights: Sequence[torch.Tensor],
                      biases: Sequence[torch.Tensor],
                      negative_slope: float = 0.2) -> torch.Tensor:
     """The JAX function's interface: NHWC ``x`` (B, H, W, Cin), HWIO
-    weights (3, 3, Ci, F) and (F,) biases -> NHWC (B, H, W, F)."""
-    packed = pack_conv_block(weights, biases, layout="hwio")
+    weights (3, 3, Ci, F) and (F,) biases -> NHWC (B, H, W, F), in the
+    dtype of ``x`` (float32 or bfloat16)."""
+    packed = pack_conv_block(weights, biases, layout="hwio", dtype=x.dtype)
     out = conv_block(x.permute(0, 3, 1, 2).contiguous(), packed,
                      negative_slope)
     return out.permute(0, 2, 3, 1).contiguous()

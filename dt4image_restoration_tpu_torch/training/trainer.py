@@ -15,7 +15,9 @@ The same policy as the JAX trainer:
 
 One update is plain PyTorch (autograd, cuBLAS, cuDNN): the hand-written
 kernels K3, K4 and K5 have no backward, so a model built with
-``use_pallas=True`` is refused.
+``use_pallas=True`` is refused, and so is one built with
+``ModelConfig(dtype='bfloat16')`` (an inference setting; bfloat16 training
+is autocast over the float32 model).
 """
 from __future__ import annotations
 
@@ -161,11 +163,16 @@ def make_watch_grad_fn(model: DecisionTransformer) -> Callable:
 
 def check_trainable(model: DecisionTransformer) -> None:
     """Refuse a model whose forward would run the hand-written kernels,
-    which have no backward."""
+    which have no backward, or the bfloat16 inference casts."""
     if model.cfg.use_pallas:
         raise ValueError(
             "training needs ModelConfig(use_pallas=False): kernels K4 and K5 "
             "of the per-op forward have no backward")
+    if model.cfg.dtype != "float32":
+        raise ValueError(
+            f"training needs ModelConfig(dtype='float32'), got "
+            f"{model.cfg.dtype!r}: bfloat16 training runs the float32 "
+            "model under autocast (make_train_step('bfloat16'))")
 
 
 @dataclasses.dataclass

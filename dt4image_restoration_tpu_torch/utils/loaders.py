@@ -26,11 +26,16 @@ def _prepare(model: torch.nn.Module, device) -> torch.nn.Module:
     return model.to(device).eval().requires_grad_(False)
 
 
-def load_denoiser(path: str, device="cuda", seed: int = 0) -> UNetDenoiser:
+def load_denoiser(path: str, device="cuda", dtype: str = "float32",
+                  packed: str = "pallas", seed: int = 0) -> UNetDenoiser:
     """The plug-in prior from a reference ``unet-nm.pt``, or random
-    weights from ``seed`` when ``path`` does not exist."""
+    weights from ``seed`` when ``path`` does not exist, computing in
+    ``dtype`` and executed in U-Net mode ``packed`` (``--unet_packed``;
+    every mode runs the same weights). On the card a kernel that does not
+    build or launch raises at the first call: no mode stands in for
+    another."""
     dev = resolve_device(device)
-    model = UNetDenoiser()
+    model = UNetDenoiser(dtype=dtype, packed=packed)
     if os.path.exists(path):
         sd = unet_from_reference(torch.load(path, map_location="cpu"))
     else:
@@ -43,7 +48,8 @@ def load_denoiser(path: str, device="cuda", seed: int = 0) -> UNetDenoiser:
 def load_dt(cfg: ModelConfig, path: str, device="cuda", seed: int = 0
             ) -> DecisionTransformer:
     """A Decision Transformer from a reference ``.pt`` checkpoint, or random
-    weights from ``seed`` when ``path`` does not exist."""
+    weights from ``seed`` when ``path`` does not exist; it computes in
+    ``cfg.dtype``."""
     dev = resolve_device(device)
     model = DecisionTransformer(cfg)
     if os.path.exists(path):

@@ -81,6 +81,28 @@ def test_batched_value_fn_matches_jax(shared):
                                rtol=1e-5, atol=1e-6)
 
 
+def test_value_fn_bf16_matches_jax(shared):
+    """Scoring in bfloat16 (``--dtype bfloat16``: the ResNet-50's convs in
+    bfloat16, its BatchNorms computed in float32 and rounded) against the
+    JAX scorer in bfloat16 and in float32, within the band of the JAX
+    package's own bfloat16 test (tests/test_arniqa.py), 0.05 max(1, |a|);
+    the batched scorer agrees with the per-image one."""
+    _, variables, model = shared
+    x = np.random.default_rng(3).uniform(0, 1, (2, SIZE, SIZE)).astype(
+        np.float32)
+    j16 = j_make_value_fn(variables, image_size=SIZE, dtype=jnp.bfloat16)
+    j32 = j_make_value_fn(variables, image_size=SIZE)
+    one = make_value_fn(model, image_size=SIZE, dtype="bfloat16")
+    batched = make_value_fn_batched(model, image_size=SIZE, dtype="bfloat16")
+    got = batched(torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    for i in range(2):
+        a16, a32, b = j16(x[i:i + 1]), j32(x[i:i + 1]), one(x[i:i + 1])
+        assert abs(b - a16) < 0.05 * max(1.0, abs(a16))
+        assert abs(b - a32) < 0.05 * max(1.0, abs(a32))
+        np.testing.assert_allclose(float(got[i]), b, rtol=1e-5, atol=1e-6)
+
+
 def test_hub_state_dict_loads_strictly(shared, tmp_path):
     """A torchvision-named hub dict, with the classification head and the
     BatchNorm counters, loads strictly into the same weights as the JAX

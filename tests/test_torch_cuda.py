@@ -748,3 +748,121 @@ def test_service_refuses_per_op_forward_without_kernels(
             RestorationService(**kw)
     else:
         RestorationService(**kw).close(timeout=60)
+
+
+# --- bfloat16 and the U-Net's execution modes ------------------------------
+
+def _bf16_block(rng, cin, feats, layers, dev):
+    ws, bs = [], []
+    for i in range(layers):
+        ws.append(_f32(rng, (feats, cin if i == 0 else feats, 3, 3), 0.1))
+        bs.append(_f32(rng, (feats,), 0.1))
+    return k1.pack_conv_block([w.to(dev) for w in ws],
+                              [b.to(dev) for b in bs],
+                              dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape,feats,layers", [
+    ((2, 2, 128, 128), 32, 3),   # the U-Net's inc
+    ((2, 96, 128, 128), 32, 3),  # the U-Net's up4: 3 chunks of 32
+    ((2, 2, 40, 36), 32, 3),     # ragged 16x16 tiles
+    ((1, 24, 37, 50), 8, 3),     # odd sizes, F = 8 (zero pad pairs)
+    ((2, 5, 18, 17), 24, 2),     # odd Cin, F = 24
+    ((1, 3, 7, 9), 16, 1),       # smaller than one tile
+])
+def test_conv_block_bf16_kernel_matches_plain(dev, shape, feats, layers):
+    """K1 in bfloat16 against its plain version: both sum in float32 in
+    another order and round each layer to bfloat16, so a value may come
+    out a bfloat16 step apart; the band is two steps of the largest
+    output (2^-6 x max |plain|)."""
+    from dt4image_restoration_tpu_torch.ops.kernels import conv_block_bf16
+    rng = np.random.default_rng(7)
+    packed = _bf16_block(rng, shape[1], feats, layers, dev)
+    x = _f32(rng, shape).to(dev).to(torch.bfloat16)
+    before = conv_block_bf16.launches
+    got = k1.conv_block(x, packed)
+    torch.cuda.synchronize()
+    assert conv_block_bf16.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == \
+        (shape[0], feats) + shape[2:]
+    ref = k1.conv_block_plain(x, packed).float()
+    err = float((got.float() - ref).abs().max())
+    assert err <= 2.0 ** -6 * float(ref.abs().max()), err
+
+
+def test_conv_block_bf16_kernel_refuses_float32_input(dev):
+    packed = _bf16_block(np.random.default_rng(0), 2, 8, 2, dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        k1.conv_block(torch.zeros((1, 2, 16, 16), device=dev), packed)
+
+
+def test_pallas_bfloat16_denoiser_launches_bf16_kernel(dev):
+    """The U-Net's default mode in bfloat16 runs the bfloat16 K1 at inc and
+    up4 on the card, not the float32 one nor cuDNN in their place, and
+    agrees with the CPU (the plain bfloat16 K1) within the bfloat16
+    band of the U-Net."""
+    from dt4image_restoration_tpu_torch.ops.kernels import conv_block_bf16
+    model = UNetDenoiser(dtype="bfloat16", packed="pallas")
+    model.load_state_dict(random_unet_state_dict(0))
+    model.eval().requires_grad_(False)
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 1, (2, 1, 64, 64)).astype(np.float32))
+    sigma = torch.tensor([0.05, 0.1])
+    ref = model(x, sigma)
+    kernels.reset_launch_counts()
+    got = model.to(dev)(x.to(dev), sigma.to(dev))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["conv_block_bf16"] == 2 and counts["conv_block"] == 0
+    assert conv_block_bf16.launches == 2
+    assert got.dtype == torch.float32
+    assert float((got.cpu() - ref).abs().mean()) < 2e-3
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=5e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["none", "s2d", "pallas", "winograd",
+                                  "winograd_deep"])
+def test_unet_modes_on_card_match_cpu(dev, mode, dtype):
+    """Every --unet_packed mode on the card against the same mode on the
+    CPU: float32 within the U-Net band (1e-3 rel, 2e-4 abs); bfloat16
+    (cuDNN and the CPU round at other places) within 2e-3 on average."""
+    model = UNetDenoiser(dtype=dtype, packed=mode)
+    model.load_state_dict(random_unet_state_dict(0))
+    model.eval().requires_grad_(False)
+    x = torch.from_numpy(np.random.default_rng(4).uniform(
+        0, 1, (2, 1, 64, 64)).astype(np.float32))
+    sigma = torch.tensor([0.05, 0.1])
+    ref = model(x, sigma)
+    got = model.to(dev)(x.to(dev), sigma.to(dev)).cpu()
+    if dtype == "float32":
+        torch.testing.assert_close(got, ref, rtol=1e-3, atol=2e-4)
+    else:
+        assert float((got - ref).abs().mean()) < 2e-3
+        torch.testing.assert_close(got, ref, rtol=0, atol=5e-2)
+
+
+def test_bfloat16_eval_on_card_matches_cpu(dev, tmp_path):
+    """Greedy evaluation with --dtype bfloat16 (bfloat16 K1, K2, K3) on two
+    slices: equal episode lengths and rewards within 0.15 dB of the CPU
+    run, the JAX package's bfloat16 band."""
+    cfg = ModelConfig(block_size=18, use_pallas=True, dtype="bfloat16")
+    d = write_eval_dir(str(tmp_path / "4_15"), "4_15", n=2, seed=17)
+    records = [EvaluationDataset(d, 10.0)[i] for i in range(2)]
+    unet = UNetDenoiser(dtype="bfloat16")
+    unet.load_state_dict(random_unet_state_dict(0))
+    unet.eval().requires_grad_(False)
+    runs = {}
+    for device in ("cpu", dev):
+        kernels.reset_launch_counts()
+        runs[str(device)] = Evaluator(
+            dt=_long_window_policy(cfg, device), denoise=unet.to(device),
+            cfg=cfg, max_timesteps=30, device=device).evaluate_records(
+                records)
+        counts = kernels.launch_counts()
+    assert counts["conv_block_bf16"] > 0 and counts["dt_decode"] > 0
+    assert counts["kspace"] > 0 and counts["conv_block"] == 0
+    cpu, gpu = runs["cpu"], runs[str(dev)]
+    np.testing.assert_array_equal(gpu["episode_len"], cpu["episode_len"])
+    np.testing.assert_allclose(gpu["reward"], cpu["reward"], rtol=0,
+                               atol=0.15)

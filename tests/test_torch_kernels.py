@@ -165,7 +165,7 @@ def test_three_tf32_products_are_float32_accurate():
     while one TF32 product misses the kernel's 1e-4 tolerance."""
     unet = UNetDenoiser()
     unet.load_state_dict(random_unet_state_dict(0))
-    packed = unet.net.up4.packed()
+    packed = unet.net.up4.packed_weights()
     x = torch.from_numpy(np.random.default_rng(0).uniform(
         0, 1, (1, 96, 24, 24)).astype(np.float32))
     ref = k1.conv_block_plain(x, packed)
@@ -173,6 +173,92 @@ def test_three_tf32_products_are_float32_accurate():
     err1 = float((_tf32_block(x, packed, 1) - ref).abs().max())
     assert err3 <= 1e-5
     assert err1 > 1e-4
+
+
+# --- K1 in bfloat16 ------------------------------------------------------
+
+@pytest.mark.parametrize("shape,feats,layers,row_tile", [
+    ((2, 16, 16, 2), 8, 3, None),     # inc-shaped (Cin 2), one 16x16 tile
+    ((1, 12, 16, 64), 8, 3, 2),       # Cin 64, 3 JAX row tiles
+    ((1, 16, 48, 2), 32, 3, None),    # inc width, 3 CUDA tiles
+    ((2, 16, 16, 64), 16, 2, None),
+])
+def test_conv_block_bf16_plain_matches_pallas(rng, shape, feats, layers,
+                                              row_tile):
+    """The plain bfloat16 K1 against the Pallas kernel on bfloat16
+    operands (interpret mode): both sum the products of the bfloat16
+    values in float32 and round every layer to bfloat16, so they agree to
+    bfloat16 rounding."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    ws, bs = _block_params(rng, shape[-1], feats, layers)
+    bf = jnp.bfloat16
+    ref = j_fused_conv_block(jnp.asarray(x, bf),
+                             [jnp.asarray(w, bf) for w in ws],
+                             [jnp.asarray(b, bf) for b in bs],
+                             row_tile=row_tile, interpret=True)
+    got = k1.fused_conv_block(torch.from_numpy(x).to(torch.bfloat16),
+                              _t(ws), _t(bs))
+    assert got.dtype == torch.bfloat16
+    assert got.shape == shape[:3] + (feats,)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=1e-2,
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("cin,feats,layers", [(2, 32, 3), (96, 32, 3),
+                                              (5, 24, 2), (24, 8, 3)])
+def test_conv_block_bf16_fragments_are_the_mma_b_operand(rng, cin, feats,
+                                                         layers):
+    """The bfloat16 pack holds the weights rounded to bfloat16, and its
+    fragments read as the kernel's lanes read them: value (word w, half h)
+    of lane 4g + t in (16-channel group, tap, n-tile j) is the weight of
+    input channel 16 group + 8 w + 2 t + h to output 8 j + g, zero in the
+    channels padded to multiples of 16 and 8."""
+    ws, bs = _block_params(rng, cin, feats, layers)
+    packed = k1.pack_conv_block(_t(ws), _t(bs), layout="hwio",
+                                dtype=torch.bfloat16)
+    assert packed.dtype == packed.tc_weights.dtype == torch.bfloat16
+    assert torch.equal(packed.biases.float(), torch.from_numpy(
+        np.stack(bs)).to(torch.bfloat16).float())
+    nt, off = -(-feats // 8), 0
+    for i in range(layers):
+        w = packed.layer_weight(i)
+        assert torch.equal(w, torch.from_numpy(ws[i]).permute(2, 0, 1, 3)
+                           .to(torch.bfloat16))
+        ci = w.shape[0]
+        groups = -(-ci // 16)
+        size = groups * 9 * nt * 8 * 4 * 2 * 2
+        frag = packed.tc_weights[off:off + size].view(
+            groups, 9, nt, 8, 4, 2, 2)
+        off += size
+        wp = F.pad(w.float(), (0, nt * 8 - feats, 0, 0, 0, 0,
+                               0, groups * 16 - ci)).reshape(
+                                   groups * 16, 9, nt * 8)
+        grp, tap, j, g, t, wd, h = torch.meshgrid(
+            *[torch.arange(n) for n in frag.shape], indexing="ij")
+        want = wp[16 * grp + 8 * wd + 2 * t + h, tap, 8 * j + g]
+        assert torch.equal(frag.float(), want)
+    assert off == packed.tc_weights.numel()
+
+
+def test_conv_block_bf16_plain_rounds_each_layer():
+    """The plain bfloat16 K1 is the float32 block on the bfloat16 values
+    with every layer's output rounded to bfloat16."""
+    rng = np.random.default_rng(3)
+    ws, bs = _block_params(rng, 4, 8, 2)
+    x = torch.from_numpy(rng.standard_normal((1, 4, 10, 12)).astype(
+        np.float32)).to(torch.bfloat16)
+    packed = k1.pack_conv_block(_t(ws), _t(bs), layout="hwio",
+                                dtype=torch.bfloat16)
+    y = x.float()
+    for i in range(2):
+        w = packed.layer_weight(i).float().permute(3, 0, 1, 2)
+        y = F.leaky_relu(F.conv2d(y, w, packed.biases[i].float(),
+                                  padding=1), 0.2)
+        y = y.to(torch.bfloat16).float()
+    got = k1.conv_block_plain(x, packed)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), y, rtol=2 ** -7, atol=1e-6)
 
 
 # --- K2 -----------------------------------------------------------------
@@ -397,6 +483,9 @@ def test_plain_path_counts_no_launches(rng):
     x = torch.zeros((1, 4, 6, 8))
     k4.fused_causal_attention(x, x, x)
     k5.layernorm(x, torch.ones(8), torch.zeros(8))
-    assert kernels.launch_counts() == {"conv_block": 0, "kspace": 0,
+    k1.fused_conv_block(torch.zeros((1, 8, 8, 2), dtype=torch.bfloat16),
+                        _t(ws), _t(bs))
+    assert kernels.launch_counts() == {"conv_block": 0,
+                                       "conv_block_bf16": 0, "kspace": 0,
                                        "dt_decode": 0, "attention": 0,
                                        "layernorm": 0}

@@ -157,7 +157,8 @@ def test_cli_eval_block_size_36_on_cpu(tmp_path):
                for b, r in outs.items()}
     assert len(forward["36"]) == 1 and "per-op (kernels K4, K5)" \
         in forward["36"][0] and "36 tokens" in forward["36"][0]
-    assert forward["18"] == ["policy forward: fused (kernel K3)"]
+    assert forward["18"] == ["policy forward: fused (kernel K3); dtype "
+                             "float32, U-Net mode pallas"]
     lines = dict(ln.rsplit(",", 1) for ln in outs["36"].stdout.splitlines()
                  if "," in ln)
     assert 1 <= float(lines["Average iter"]) <= 12
@@ -235,10 +236,12 @@ def test_cli_mcts_on_cpu(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("flags,want", [
     (("--tree_backend", "host"), ("BatchedMCTS", None)),
     (("--node_dtype", "bfloat16"), ("DeviceMCTS", "bfloat16")),
+    (("--dtype", "bfloat16", "--unet_packed", "s2d"),
+     ("DeviceMCTS", "float32")),
 ])
 def test_cli_mcts_backends_on_cpu(tmp_path, monkeypatch, capsys, flags,
                                   want):
     """--tree_backend host runs the host-tree search; --node_dtype reaches
-    the device search."""
+    the device search, and so do --dtype bfloat16 and --unet_packed."""
     assert _cli_mcts(tmp_path, monkeypatch, capsys, *flags,
                      images=1) == [want]

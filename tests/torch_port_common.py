@@ -23,13 +23,8 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def shared_denoisers(seed: int = 4, base: int = 8):
-    """``(port UNetDenoiser, jax denoise(img NHWC, sigma (B,)))`` on the
-    same He-scaled random weights."""
-    sd = random_unet_state_dict(seed=seed, base_channels=base)
-    model = UNetDenoiser(base)
-    model.load_state_dict(sd)
-    model.eval().requires_grad_(False)
+def jax_unet_params(sd):
+    """A port ``UNetDenoiser`` state dict as the JAX ``UNet``'s params."""
     net = {}
     for key, v in sd.items():
         _, block, leaf = key.split(".", 2)           # net.<block>.<leaf>
@@ -40,6 +35,17 @@ def shared_denoisers(seed: int = 4, base: int = 8):
             dst = dst.setdefault(conv, {})
         dst["kernel" if kind == "weight" else "bias"] = \
             v.transpose(2, 3, 1, 0) if kind == "weight" else v
+    return net
+
+
+def shared_denoisers(seed: int = 4, base: int = 8):
+    """``(port UNetDenoiser, jax denoise(img NHWC, sigma (B,)))`` on the
+    same He-scaled random weights."""
+    sd = random_unet_state_dict(seed=seed, base_channels=base)
+    model = UNetDenoiser(base)
+    model.load_state_dict(sd)
+    model.eval().requires_grad_(False)
+    net = jax_unet_params(sd)
     jnet = JUNet(base_channels=base)
 
     def j_denoise(img, sigma):
