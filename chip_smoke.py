@@ -64,9 +64,10 @@ views the per-op forward hands it, at 18 tokens and at 90
 (--block_size 90). The per_op_forward phase times one per-op policy forward
 at the search's shape eagerly and from a CUDA graph and counts the kernels
 it runs with ``torch.profiler``. The run fails if the build of K1 (either
-dtype) or K3 spills registers. Launches are counted per path, from zero
-just before it to just after it; a bfloat16 path that launches the
-float32 K1, or a float32 path the bfloat16 one, fails the run.
+dtype) or K3 spills registers, or if the bfloat16 K1's SASS shows no wgmma
+(HGMMA) or cannot be read. Launches are counted per path, from zero just
+before it to just after it; a bfloat16 path that launches the float32 K1,
+or a float32 path the bfloat16 one, fails the run.
 The line before the last is the kernel summary; the last line is the device
 summary. Any failure ends the run with a traceback and a non-zero exit
 code.
@@ -108,8 +109,9 @@ H100_BYTES_PER_S = 3.35e12             # HBM3
 # Dense bfloat16 tensor-core rate by the card's name (NVIDIA's data sheets);
 # the H100 SXM's unless the name says PCIe or NVL.
 BF16_FLOPS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("", 989e12))
-# Kernels built around mma.sync: the device line reports their SASS counts,
-# and the run fails if their builds spill registers.
+# Kernels built around the tensor cores (mma.sync; wgmma in the bfloat16
+# K1): the device line reports their SASS counts, and the run fails if
+# their builds spill registers.
 TENSOR_CORE_KERNELS = ("conv_block", "conv_block_bf16", "dt_decode")
 REPLACES = {
     "conv_block": "dt4image_restoration_tpu/ops/pallas/conv_block.py:134",
@@ -170,9 +172,9 @@ def bf16_peak(name: str) -> float:
 
 
 def sass_counts(library):
-    """Tensor-core (TF32, bfloat16) and scalar FMA instructions in a built
-    library's SASS, from ``cuobjdump -sass``; None where the tool is
-    missing."""
+    """Tensor-core (mma.sync: HMMA TF32 and bfloat16; wgmma: HGMMA) and
+    scalar FMA instructions in a built library's SASS, from ``cuobjdump
+    -sass``; None where the tool is missing."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -181,6 +183,7 @@ def sass_counts(library):
                           text=True, timeout=120, check=True).stdout
     return {"hmma_tf32": len(re.findall(r"\bHMMA\.\S*TF32", sass)),
             "hmma_bf16": len(re.findall(r"\bHMMA\.\S*BF16", sass)),
+            "hgmma": len(re.findall(r"\bHGMMA\.", sass)),
             "ffma": len(re.findall(r"\bFFMA\b", sass))}
 
 
@@ -255,14 +258,21 @@ def phase_device(torch, kernels_build):
     build_s = kernels_build.build()
     ptxas = {name: [ln.strip() for ln in
                     kernels_build.build_log(name).splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if re.search(r"Used \d+ registers|spill", ln)]
              for name in kernels_build.KERNEL_SOURCES}
+    sass = {name: sass_counts(kernels_build.library_path(name))
+            for name in TENSOR_CORE_KERNELS}
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "ptxas": ptxas,
-          **{f"{name}_sass": sass_counts(kernels_build.library_path(name))
-             for name in TENSOR_CORE_KERNELS}})
+          **{f"{name}_sass": counts for name, counts in sass.items()}})
+    # The bfloat16 K1 runs its products as wgmma (HGMMA in SASS).
+    if sass["conv_block_bf16"] is None:
+        raise AssertionError("cuobjdump is missing: conv_block_bf16's SASS "
+                             "cannot be checked for HGMMA")
+    if not sass["conv_block_bf16"]["hgmma"]:
+        raise AssertionError("conv_block_bf16's build has no HGMMA")
     for name in TENSOR_CORE_KERNELS:
         spills = re.findall(r"(\d+) bytes spill (?:stores|loads)",
                             kernels_build.build_log(name))

@@ -19,7 +19,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Sequence
 
 import torch
 
@@ -31,7 +31,7 @@ KERNEL_SOURCES = ("kspace", "conv_block", "conv_block_bf16", "dt_decode",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[tuple, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -47,40 +47,47 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
+    """The library of ``csrc/<name>.cu`` built with the macros ``defines``
+    (``-D`` flags; none for the port's own build)."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(NVCC_FLAGS + tuple(f"-D{d}" for d in defines))
+    digest = hashlib.sha256(src + flags.encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, defines: Sequence[str] = ()) -> str:
     """The compiler's report (ptxas registers, shared memory, spills) of the
     current library of ``csrc/<name>.cu``, kept beside it; empty before the
     first build."""
-    log = library_path(name).with_suffix(".log")
+    log = library_path(name, defines).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
-def build(names: Optional[Iterable[str]] = None) -> float:
+def build(names: Optional[Iterable] = None) -> float:
     """Compile every missing library of ``names`` (default: all kernels)
-    with one ``nvcc`` each, started together. Returns the wall seconds."""
-    names = list(KERNEL_SOURCES if names is None else names)
-    todo = [n for n in names if not library_path(n).exists()]
+    with one ``nvcc`` each, started together. A name may also be a
+    ``(name, defines)`` pair, a build with ``-D`` macros. Returns the wall
+    seconds."""
+    names = [(n, ()) if isinstance(n, str) else (n[0], tuple(n[1]))
+             for n in (KERNEL_SOURCES if names is None else names)]
+    todo = [n for n in names if not library_path(*n).exists()]
     t0 = time.perf_counter()
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
-    for name in todo:
-        out = library_path(name)
+    for name, defines in todo:
+        out = library_path(name, defines)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
+        cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+               str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[(name, defines)] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), tmp, out)
     failed = []
-    for name, (proc, tmp, out) in procs.items():
+    for (name, _), (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
@@ -92,13 +99,15 @@ def build(names: Optional[Iterable[str]] = None) -> float:
     return time.perf_counter() - t0
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    lib = _libs.get(name)
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built with the macros
+    ``defines``), built on first use."""
+    key = (name, tuple(defines))
+    lib = _libs.get(key)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _libs[name] = lib
+        build([key])
+        lib = ctypes.CDLL(str(library_path(name, defines)))
+        _libs[key] = lib
     return lib
 
 

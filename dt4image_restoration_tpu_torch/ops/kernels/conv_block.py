@@ -54,7 +54,7 @@ class PackedConvBlock:
     layer as (F, 3, 3, F). ``biases`` is (L, F). ``tc_weights`` is what the
     kernel reads: per layer, :func:`_fragments` of its weights. All three
     are float32, or all three bfloat16 for the bfloat16 kernel (whose
-    ``tc_weights`` are :func:`.conv_block_bf16.fragments`).
+    ``tc_weights`` are :func:`.conv_block_bf16.wgmma_weights`).
     """
     weights: torch.Tensor
     biases: torch.Tensor
@@ -132,7 +132,7 @@ def pack_conv_block(weights: Sequence[torch.Tensor],
         if tuple(w.shape) != want:
             raise ValueError(f"layer {i}: want {want} (Ci, 3, 3, F), "
                              f"got {tuple(w.shape)}")
-    frag = _fragments if dtype == torch.float32 else _bf16.fragments
+    frag = _fragments if dtype == torch.float32 else _bf16.wgmma_weights
     return PackedConvBlock(
         weights=torch.cat([w.reshape(-1) for w in ws]).to(dtype),
         biases=torch.stack(list(biases)).to(dtype).contiguous(),

@@ -764,11 +764,15 @@ def _bf16_block(rng, cin, feats, layers, dev):
 
 @pytest.mark.parametrize("shape,feats,layers", [
     ((2, 2, 128, 128), 32, 3),   # the U-Net's inc
-    ((2, 96, 128, 128), 32, 3),  # the U-Net's up4: 3 chunks of 32
-    ((2, 2, 40, 36), 32, 3),     # ragged 16x16 tiles
-    ((1, 24, 37, 50), 8, 3),     # odd sizes, F = 8 (zero pad pairs)
+    ((2, 96, 128, 128), 32, 3),  # the U-Net's up4: 6 chunks an item
+    ((96, 96, 128, 128), 32, 3),  # up4 at the search's expansion batch
+    ((3, 96, 128, 128), 32, 3),  # 192 work items: not a multiple of grid
+    ((2, 2, 40, 36), 32, 3),     # ragged 16x16 tiles, element-wise loads
+    ((1, 24, 37, 50), 8, 3),     # odd sizes, F = 8 (zero pad planes)
     ((2, 5, 18, 17), 24, 2),     # odd Cin, F = 24
     ((1, 3, 7, 9), 16, 1),       # smaller than one tile
+    ((2, 176, 40, 48), 32, 3),   # layer 0's weights carried by each stage
+    ((1, 7, 33, 40), 32, 4),     # 4 layers: 9 m64 tiles at layer 0
 ])
 def test_conv_block_bf16_kernel_matches_plain(dev, shape, feats, layers):
     """K1 in bfloat16 against its plain version: both sum in float32 in
@@ -788,6 +792,25 @@ def test_conv_block_bf16_kernel_matches_plain(dev, shape, feats, layers):
     ref = k1.conv_block_plain(x, packed).float()
     err = float((got.float() - ref).abs().max())
     assert err <= 2.0 ** -6 * float(ref.abs().max()), err
+
+
+def test_conv_block_bf16_kernel_is_deterministic_and_takes_unaligned_input(
+        dev):
+    """Two launches on one stream give bit-equal output (no atomics, a
+    fixed order of products), and an input that starts off a 16-byte
+    boundary takes the element-wise path to the same result."""
+    from dt4image_restoration_tpu_torch.ops.kernels import conv_block_bf16
+    rng = np.random.default_rng(11)
+    packed = _bf16_block(rng, 96, 32, 3, dev)
+    x = _f32(rng, (5, 96, 128, 128)).to(dev).to(torch.bfloat16)
+    a = k1.conv_block(x, packed)
+    b = k1.conv_block(x, packed)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    shifted = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:]
+    shifted = shifted.view(x.shape).copy_(x)
+    assert not conv_block_bf16.vector_path(shifted)
+    assert torch.equal(k1.conv_block(shifted, packed), a)
 
 
 def test_conv_block_bf16_kernel_refuses_float32_input(dev):

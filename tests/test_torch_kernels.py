@@ -27,6 +27,7 @@ from dt4image_restoration_tpu_torch.config import ModelConfig
 from dt4image_restoration_tpu_torch.ops import kernels
 from dt4image_restoration_tpu_torch.ops.kernels import attention as k4
 from dt4image_restoration_tpu_torch.ops.kernels import conv_block as k1
+from dt4image_restoration_tpu_torch.ops.kernels import conv_block_bf16 as kb
 from dt4image_restoration_tpu_torch.ops.kernels import layernorm as k5
 from dt4image_restoration_tpu_torch.ops.kernels import kspace as k2
 from dt4image_restoration_tpu_torch.ops.kernels import transformer as k3
@@ -205,40 +206,191 @@ def test_conv_block_bf16_plain_matches_pallas(rng, shape, feats, layers,
                                atol=1e-2)
 
 
+def _wgmma_b(tc, start, feats):
+    """The (16, F) k16-step operand at byte ``start`` of a bfloat16 pack,
+    read as the kernel's wgmma descriptor addresses it: K-major without
+    swizzle, 8 x 8 core matrices of 128 contiguous bytes (8 outputs x 16
+    bytes), SBO bytes between 8-output groups and LBO = 16 F bytes
+    between the step's two 8-channel halves."""
+    k, n = torch.meshgrid(torch.arange(16), torch.arange(feats),
+                          indexing="ij")
+    addr = start + (n // 8) * kb.SBO + (n % 8) * 16 + (k // 8) * 16 * feats \
+        + (k % 8) * 2
+    return tc[addr // 2].float()
+
+
 @pytest.mark.parametrize("cin,feats,layers", [(2, 32, 3), (96, 32, 3),
                                               (5, 24, 2), (24, 8, 3)])
-def test_conv_block_bf16_fragments_are_the_mma_b_operand(rng, cin, feats,
+def test_conv_block_bf16_weights_are_the_wgmma_b_operand(rng, cin, feats,
                                                          layers):
-    """The bfloat16 pack holds the weights rounded to bfloat16, and its
-    fragments read as the kernel's lanes read them: value (word w, half h)
-    of lane 4g + t in (16-channel group, tap, n-tile j) is the weight of
-    input channel 16 group + 8 w + 2 t + h to output 8 j + g, zero in the
-    channels padded to multiples of 16 and 8."""
+    """The bfloat16 pack holds the weights rounded to bfloat16, and every
+    k16 step of it (per layer: 16-channel group, then tap), read as the
+    kernel's descriptor addresses it, gives back ``packed.layer_weight``:
+    channel 16 group + k to output n at the tap, zero in the channels
+    padded to a multiple of 16."""
     ws, bs = _block_params(rng, cin, feats, layers)
     packed = k1.pack_conv_block(_t(ws), _t(bs), layout="hwio",
                                 dtype=torch.bfloat16)
     assert packed.dtype == packed.tc_weights.dtype == torch.bfloat16
     assert torch.equal(packed.biases.float(), torch.from_numpy(
         np.stack(bs)).to(torch.bfloat16).float())
-    nt, off = -(-feats // 8), 0
+    step, off = 32 * feats, 0
     for i in range(layers):
         w = packed.layer_weight(i)
         assert torch.equal(w, torch.from_numpy(ws[i]).permute(2, 0, 1, 3)
                            .to(torch.bfloat16))
         ci = w.shape[0]
         groups = -(-ci // 16)
-        size = groups * 9 * nt * 8 * 4 * 2 * 2
-        frag = packed.tc_weights[off:off + size].view(
-            groups, 9, nt, 8, 4, 2, 2)
-        off += size
-        wp = F.pad(w.float(), (0, nt * 8 - feats, 0, 0, 0, 0,
-                               0, groups * 16 - ci)).reshape(
-                                   groups * 16, 9, nt * 8)
-        grp, tap, j, g, t, wd, h = torch.meshgrid(
-            *[torch.arange(n) for n in frag.shape], indexing="ij")
-        want = wp[16 * grp + 8 * wd + 2 * t + h, tap, 8 * j + g]
-        assert torch.equal(frag.float(), want)
-    assert off == packed.tc_weights.numel()
+        wp = F.pad(w.float(), (0, 0, 0, 0, 0, 0, 0, groups * 16 - ci))
+        for grp in range(groups):
+            for tap in range(9):
+                got = _wgmma_b(packed.tc_weights, off, feats)
+                assert torch.equal(got, wp[16 * grp:16 * grp + 16,
+                                           tap // 3, tap % 3])
+                off += step
+    assert off == 2 * packed.tc_weights.numel()
+
+
+@pytest.mark.parametrize("cin,feats,layers", [(2, 32, 3), (20, 8, 2),
+                                              (5, 24, 4), (3, 16, 1)])
+def test_conv_block_bf16_row_stride_gemm_is_the_conv(rng, cin, feats,
+                                                     layers):
+    """The kernel's implicit GEMM, emulated on one tile: each layer's input
+    region as K-major pixel rows (one 8-channel plane per LBO, garbage past
+    the region), output pixel (oy, ox) as row oy si + ox of the plan's m64
+    tiles, tap (ky, kx) as the A rows shifted by ky si + kx, B read by
+    descriptor from the pack in (group, tap) order, garbage rows dropped,
+    and the next layer's rows written densely at stride so. It equals the
+    block's valid convolutions on the window, layer by layer."""
+    ws, bs = _block_params(rng, cin, feats, layers)
+    packed = k1.pack_conv_block(_t(ws), _t(bs), layout="hwio",
+                                dtype=torch.bfloat16)
+    si0 = kb.geometry(layers, 0)[0]
+    window = torch.from_numpy(rng.standard_normal(
+        (cin, si0, si0)).astype(np.float32)).to(torch.bfloat16).float()
+    ref, a_in, off = window, window, 0
+    for i in range(layers):
+        si, so, rows, tiles = kb.geometry(layers, i)
+        ci = a_in.shape[0]
+        groups = -(-ci // 16)
+        nrows = kb.input_rows(layers, i)
+        assert si * si <= nrows
+        a = torch.from_numpy(rng.standard_normal(
+            (groups * 16, nrows)).astype(np.float32))    # garbage rows
+        a[:, :si * si] = 0.0
+        a[:ci, :si * si] = a_in.reshape(ci, -1)
+        acc = torch.zeros(64 * tiles, feats)
+        m = torch.arange(64 * tiles)
+        for grp in range(groups):
+            for tap in range(9):
+                shift = (tap // 3) * si + tap % 3
+                b = _wgmma_b(packed.tc_weights, off, feats)
+                acc += a[16 * grp:16 * grp + 16, m + shift].T @ b
+                off += 32 * feats
+        oy, ox = m // si, m % si
+        keep = (m < rows) & (ox < so)
+        assert int(keep.sum()) == so * so
+        out = acc[keep].T.reshape(feats, so, so)
+        w = packed.layer_weight(i).float().permute(3, 0, 1, 2)
+        ref = F.conv2d(ref[None], w)[0]
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
+        a_in = ref
+    assert off == 2 * packed.tc_weights.numel()
+
+
+@pytest.mark.parametrize("sms", [8, 132])
+@pytest.mark.parametrize("h,w", [(128, 128), (40, 36), (37, 50), (7, 9)])
+@pytest.mark.parametrize("batch", [1, 16, 63, 96])
+def test_conv_block_bf16_plan_covers_every_tile_once(batch, h, w, sms):
+    """The persistent grid's work items (item = block + k x grid) cover
+    every (image, tile) exactly once, balanced within one item, with a
+    grid of min(items, SMs) blocks: smaller than the SM count where there
+    are fewer items."""
+    p = kb.plan(batch, 96, h, w, 32, 3, sms)
+    tiles_y, tiles_x = -(-h // kb.TILE), -(-w // kb.TILE)
+    assert p.items == batch * tiles_y * tiles_x
+    assert p.grid == min(sms, p.items)
+    blocks = kb.work_items(p)
+    seen = [item for block in blocks for item in block]
+    assert sorted(seen) == [(b, ty, tx) for b in range(batch)
+                            for ty in range(tiles_y)
+                            for tx in range(tiles_x)]
+    sizes = [len(block) for block in blocks]
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+
+
+@pytest.mark.parametrize("cin,feats,layers,resident", [
+    (2, 32, 3, True), (96, 32, 3, True), (160, 32, 3, True),
+    (176, 32, 3, False), (512, 32, 3, False), (2, 32, 4, True),
+    (96, 32, 4, True), (24, 8, 3, True), (5, 24, 2, True),
+    (3, 16, 1, True), (1, 8, 1, True), (1024, 32, 4, False)])
+def test_conv_block_bf16_plan_fits_shared_memory(cin, feats, layers,
+                                                 resident):
+    """The shared-memory map of a launch: 128-byte aligned, disjoint
+    regions within the H100's 227 KB; descriptor fields in range; at least
+    two ring stages; layer 0's weights resident where they fit (up to
+    Cin 160 at F 32, L 3) and carried by each stage beyond; every buffer
+    as long as the rows its layer's descriptors reach; and no consumer
+    warpgroup holding more than MAX_TILES m64 tiles."""
+    p = kb.plan(63, cin, 128, 128, feats, layers, 132)
+    assert bool(p.resident) == resident and 2 <= p.stages <= kb.MAX_STAGES
+    regions = sorted(p.regions(feats), key=lambda r: r[1])
+    end = 0
+    for name, offset, size in regions:
+        assert offset % 128 == 0 and offset >= end, (name, offset, end)
+        end = offset + size
+    assert end <= p.smem <= kb.MAX_SMEM and p.smem < 2 ** 18
+    fk, step = -(-feats // 16) * 16, 32 * feats
+    chunks = -(-cin // kb.CHUNK)
+    assert p.chunks == chunks and p.w0_bytes == chunks * 9 * step
+    later = (layers - 1) * fk // 16 * 9 * step
+    assert p.w_bytes == (p.w0_bytes if resident else 0) + later
+    assert p.stage_bytes >= 2 * p.stage_plane + (0 if resident else 9 * step)
+    assert p.stage_plane == 16 * kb.input_rows(layers, 0)
+    for i in range(1, layers):
+        plane = p.mid_plane0 if i % 2 == 1 else p.mid_plane1
+        assert plane >= 16 * kb.input_rows(layers, i)
+        # layer i - 1 writes its so x so outputs densely at stride so
+        assert kb.geometry(layers, i - 1)[1] == kb.geometry(layers, i)[0]
+    for plane in (p.stage_plane, p.mid_plane0, p.mid_plane1, 16 * feats):
+        assert plane % 16 == 0 and plane >> 4 < 2 ** 14    # LBO field
+    for i in range(layers):
+        assert -(-kb.geometry(layers, i)[3] // 2) <= kb.MAX_TILES
+
+
+def test_conv_block_bf16_plan_needs_two_stages(monkeypatch):
+    """A consumer releases a ring stage only once the next chunk's products
+    are issued, so one stage would deadlock. Where two stages do not fit
+    beside the resident weights, layer 0's weights move into the stages;
+    where two do not fit even so, the plan refuses the launch."""
+    def smem_of_two(p):
+        return p.smem - (p.stages - 2) * p.stage_bytes
+
+    args = (1, 96, 128, 128, 32, 3, 132)
+    full = kb.plan(*args)
+    assert full.resident and full.stages > 2
+    monkeypatch.setattr(kb, "MAX_SMEM", smem_of_two(full))
+    assert (kb.plan(*args).resident, kb.plan(*args).stages) == (1, 2)
+    monkeypatch.setattr(kb, "MAX_SMEM", smem_of_two(full) - 1)
+    carried = kb.plan(*args)
+    assert not carried.resident and carried.stages >= 2
+    monkeypatch.setattr(kb, "MAX_SMEM", smem_of_two(carried))
+    assert (kb.plan(*args).resident, kb.plan(*args).stages) == (0, 2)
+    monkeypatch.setattr(kb, "MAX_SMEM", smem_of_two(carried) - 1)
+    with pytest.raises(ValueError, match="two ring stages"):
+        kb.plan(*args)
+
+
+def test_conv_block_bf16_vector_path():
+    """16-byte loads and stores where W % 8 == 0 and the input is 16-byte
+    aligned; element by element otherwise."""
+    x = torch.zeros((2, 96, 128, 128), dtype=torch.bfloat16)
+    assert kb.vector_path(x)
+    assert not kb.vector_path(torch.zeros((1, 2, 40, 36),
+                                          dtype=torch.bfloat16))
+    shifted = torch.zeros(2 * 96 * 128 * 128 + 1,
+                          dtype=torch.bfloat16)[1:].view(x.shape)
+    assert shifted.is_contiguous() and not kb.vector_path(shifted)
 
 
 def test_conv_block_bf16_plain_rounds_each_layer():
