@@ -16,6 +16,12 @@ prints one JSON line per phase. The paths:
   * eval: greedy Decision Transformer evaluation of 63 slices, 7 from each
     of 9 synthetic eval directories, with the fused policy forward (K1, K2,
     K3);
+  * record: the expert corpus's device path (``data/expert.py``, what
+    ``tools/make_dataset.py`` runs): 128 trajectories of 8 ADMM steps as
+    one batch of 128 with the full-width U-Net (K1, K2), in memory (the
+    card's machine has no h5py, so no states.h5 is written); three
+    trajectories held against the one-slice ``rollout_expert`` on the card
+    and two against it on the CPU;
   * mcts: the PUCB tree search of 16 of those slices, 30 rounds each, with
     the per-op policy forward (K1, K2, K4, K5) and the proxy scorer, on
     the host-tree backend and on the device-resident one (``DeviceMCTS``,
@@ -23,8 +29,10 @@ prints one JSON line per phase. The paths:
     tree-iterations/s, host syncs per round and peak device memory of
     each; then one tree on the card and on the CPU at --block_size 18 and
     36, and one tree on both backends on the card and on the device
-    backend on the CPU with a quantized scorer; then ARNIQA scores of 16
-    slices on the card and on the CPU;
+    backend on the CPU with a quantized scorer; then the host search's
+    single-node API (``MCTS.expand`` of one root, ``MCTS.beam_search``
+    from a child: the launch path ``mcts_expand``) on the card against the
+    CPU; then ARNIQA scores of 16 slices on the card and on the CPU;
   * serve: ``RestorationService`` at the traffic of
     benchmarks/serving_bench.py: policy mode at batch 16 (a burst of 64
     requests at pipeline_depth 1 and 2, then 32 concurrent clients x 8
@@ -53,7 +61,8 @@ prints one JSON line per phase. The paths:
     that of rounds 1 and 2 (the 3-round search's wall less a 1-round
     one's).
 
-K1 is timed at the batches of these paths (1, 16, 63 and 96 slices), K3
+K1 is timed at the batches of these paths (1, 16, 63, 96 and 128 slices;
+K2 at 1, 63 and 128), K3
 at one slice and at 63, both bounded by the 3xTF32 tensor-core rate; K1 in
 bfloat16 at 1, 16, 63 and 96 slices against the dense bfloat16 rate and
 cuDNN's bfloat16 conv chain, and against the float32 K1; K3 is
@@ -98,6 +107,7 @@ SERVE_CLIENTS, SERVE_PER_CLIENT = 32, 8
 SERVE_MCTS_BATCH = 8
 SERVE_RTG, SERVE_TASK = 0.6, 2
 EXPANSION_BATCH = 96                   # the search's 6-slot expansion
+RECORD_BATCH, RECORD_EP_LEN = 128, 8    # make_dataset's chunk, --ep_len
 ROLLOUT_REPEATS = 20                   # one-slice rollouts for a median
 TRAIN_BATCH, TRAIN_T = 48, 6           # TrainerConfig's batch, 18 tokens
 TRAIN_STEPS, TRAIN_EPOCHS = 25, 2      # batches an epoch, epochs
@@ -332,12 +342,13 @@ def phase_kernels(torch, dev):
         rows.append(row)
 
     # K1 at the U-Net's two full-resolution blocks, at the batches of the
-    # paths: one slice, the search's rollouts, the evaluation batch and the
-    # search's expansion.
+    # paths: one slice, the search's rollouts, the evaluation batch, the
+    # search's expansion and the recorder's chunk.
     for name, block, cin in (("inc", unet.net.inc, 2),
                              ("up4", unet.net.up4, 96)):
         packed = block.packed_weights()
-        for b in (1, SEARCH_BATCH, EVAL_BATCH, EXPANSION_BATCH):
+        for b in (1, SEARCH_BATCH, EVAL_BATCH, EXPANSION_BATCH,
+                  RECORD_BATCH):
             x = torch.rand((b, cin, 128, 128), generator=gen, device=dev)
             got = k1.conv_block(x, packed)
             ref = k1.conv_block_plain(x, packed)
@@ -424,7 +435,7 @@ def phase_kernels(torch, dev):
     # less than the wrapper's host cost per call: their kernel_ms, plain_ms
     # and library_ms are device times from CUDA graphs, and call_ms is the
     # eager time per wrapper call.
-    for b in (1, EVAL_BATCH):
+    for b in (1, EVAL_BATCH, RECORD_BATCH):
         shape = (b, 1, 128, 128)
         z = torch.complex(torch.randn(shape, generator=gen, device=dev),
                           torch.randn(shape, generator=gen, device=dev)) * 30
@@ -634,6 +645,77 @@ def rollout_repeats(torch, dev, ckpt_dir, repeats=ROLLOUT_REPEATS):
            "admm_iters_per_s_b1": {"q1": q1, "median": median, "q3": q3}}
     emit(out)
     return out
+
+
+def phase_record(torch, dev, ckpt_dir, kernels):
+    """The expert corpus's device path (``data/expert.py:
+    expert_trajectories``, what ``tools/make_dataset.py`` records with):
+    RECORD_BATCH trajectories of RECORD_EP_LEN steps in one chunk on the
+    card with the full-width U-Net (random weights, seed 0), kept in
+    memory; a first recording warms the shapes up, the second is timed and
+    its launches counted. Then three trajectories against
+    ``rollout_expert`` (one slice, one step at a time) on the card and two
+    against it on the CPU: PSNRs within 1e-3 dB, uint8 states within 1
+    LSB. Returns the launches."""
+    import numpy as np
+
+    from dt4image_restoration_tpu_torch.config import OPTIMAL_TASKS
+    from dt4image_restoration_tpu_torch.data import expert
+    from dt4image_restoration_tpu_torch.env import admm_step
+    from dt4image_restoration_tpu_torch.utils.loaders import load_denoiser
+
+    unet_path = os.path.join(ckpt_dir, "unet-nm.pt")   # absent: seed 0
+    den = load_denoiser(unet_path, device=dev)
+
+    def record():
+        return list(expert.expert_trajectories(
+            den, n_traj=RECORD_BATCH, ep_len=RECORD_EP_LEN,
+            batch_chunk=RECORD_BATCH, device=dev))
+
+    record()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trajs = record()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+
+    checks = []
+    den_cpu = load_denoiser(unet_path, device="cpu")
+    for device, denoise, picks in ((dev, den, (0, RECORD_BATCH // 2,
+                                              RECORD_BATCH - 1)),
+                                   ("cpu", den_cpu, (0, RECORD_BATCH - 1))):
+        for i in picks:
+            _, mat = expert.expert_record(i, OPTIMAL_TASKS)
+            obs, _, psnrs = expert.rollout_expert(
+                lambda s, a, d=denoise: admm_step(d, s, a), mat,
+                RECORD_EP_LEN, device=device)
+            states = np.stack([(np.clip(ob.reshape(128, 128), 0, 1) * 255)
+                               .astype(np.uint8) for ob in obs])
+            checks.append({
+                "against": f"rollout_expert on {device}", "trajectory": i,
+                "psnr_max_diff_db": max(abs(a - b) for a, b in
+                                        zip(trajs[i].psnrs, psnrs)),
+                "state_max_lsb": int(np.abs(
+                    trajs[i].states.astype(int) - states.astype(int)).max())})
+    gains = [t.psnrs[-1] - t.psnrs[0] for t in trajs]
+    out = {"phase": "record", "nvidia_smi": nvidia_smi(),
+           "trajectories": len(trajs), "ep_len": RECORD_EP_LEN,
+           "batch_chunk": RECORD_BATCH, "wall_s": wall,
+           "trajectories_per_s": len(trajs) / wall,
+           "slice_admm_steps_per_s": len(trajs) * RECORD_EP_LEN / wall,
+           "expert_increment_db": sum(gains) / len(gains),
+           "launches": counts, "checks": checks,
+           "bands": {"psnr_db": 1e-3, "state_lsb": 1}}
+    emit(out)
+    if len(trajs) != RECORD_BATCH or not all(map(math.isfinite, gains)):
+        raise AssertionError(f"recorded {len(trajs)} trajectories, gains "
+                             f"finite: {all(map(math.isfinite, gains))}")
+    for c in checks:
+        if not (c["psnr_max_diff_db"] <= 1e-3 and c["state_max_lsb"] <= 1):
+            raise AssertionError(f"recorded trajectory {c['trajectory']} "
+                                 f"disagrees with {c['against']}: {c}")
+    return counts
 
 
 def _load_policy(cfg, ckpt_dir, device):
@@ -877,6 +959,63 @@ def device_search_checks(torch, dev, ckpt_dir, record, seed, printed):
             + compare_searches(runs[::2], "device backend on the CPU"))
 
 
+def expand_check(torch, dev, ckpt_dir, record, seed, kernels):
+    """The host search's single-node API on one root, on the card and on
+    the CPU: ``MCTS.expand`` (one policy step, six-slot ADMM step) and
+    ``MCTS.beam_search`` from its first child (a greedy rollout to the
+    horizon). Launches are counted over the card's two calls. Returns
+    (the comparison, the launches)."""
+    import numpy as np
+
+    from dt4image_restoration_tpu_torch.config import MCTSConfig
+    from dt4image_restoration_tpu_torch.env import reset_from_mat
+    from dt4image_restoration_tpu_torch.inference import Node
+    from dt4image_restoration_tpu_torch.ops.metrics import psnr
+
+    (_, rtg0, _, task0), mat = record
+    task = int(np.asarray(task0).reshape(-1)[0])
+    runs, counts = {}, None
+    for device in (dev, "cpu"):
+        m = _search(torch, device, ckpt_dir, MCTSConfig(), backend="host")
+        env = reset_from_mat(mat, device=device)
+        root = Node(0, 1.0, None, 0, 0, env, env,
+                    float(np.asarray(rtg0).reshape(-1)[0]))
+        root.bufs = m._seed_bufs(env.x.reshape(1, -1),
+                                 torch.tensor(rtg0).reshape(()),
+                                 torch.as_tensor(task0))
+        if device is dev:
+            kernels.reset_launch_counts()
+        _, adict, _ = m.expand(root, task, np.random.default_rng(seed), 0)
+        value, x, ep_len = m.beam_search(root.children[0], task)
+        if device is dev:
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+        gt = root.env_state.gt.cpu().reshape(x.shape)
+        runs[device] = {
+            "action": root.action, "priors": [c.prob for c in root.children],
+            "children_x": torch.cat([c.env_state.x.cpu()
+                                     for c in root.children]),
+            "value": value, "ep_len": ep_len,
+            "beam_psnr_db": float(psnr(gt, torch.from_numpy(x))[0, 0])}
+    card, cpu = runs[dev], runs["cpu"]
+    lo, rel = UNET_F32_BAND
+    off = (card["children_x"] - cpu["children_x"]).abs()
+    out = {"against": "CPU",
+           "action_max_rel_diff": float(np.max(
+               np.abs(card["action"] - cpu["action"])
+               / np.maximum(np.abs(cpu["action"]), 1e-6))),
+           "prior_max_rel_diff": max(abs(a - b) / abs(b) for a, b in
+                                     zip(card["priors"], cpu["priors"])),
+           "children_x_max_abs_diff": float(off.max()),
+           "children_x_in_band": bool(
+               (off <= lo + rel * cpu["children_x"].abs()).all()),
+           "beam_ep_len": [card["ep_len"], cpu["ep_len"]],
+           "beam_value": [card["value"], cpu["value"]],
+           "beam_psnr_diff_db": abs(card["beam_psnr_db"]
+                                    - cpu["beam_psnr_db"])}
+    return out, counts
+
+
 def count_syncs(torch, fn):
     """Host syncs ``fn`` makes on the card, as PyTorch's sync debug mode
     reports them (one warning per synchronising call)."""
@@ -913,9 +1052,10 @@ def phase_mcts(torch, dev, ckpt_dir, dirs, kernels):
     storage, launches counted over each search alone; host syncs per round
     of each backend over rounds 1 and 2 of the 16 trees; then one tree on
     the card and on the CPU, for 3 rounds at --block_size 18 and for 2 at
-    --block_size 36 (36-token windows, past the fused kernel K3's 32), and
-    the device backend's checks. Returns the launches of the host and
-    device searches."""
+    --block_size 36 (36-token windows, past the fused kernel K3's 32), the
+    device backend's checks and the single-node API's
+    (:func:`expand_check`). Returns the launches of the host and device
+    searches and of the single-node calls, by path."""
     from dt4image_restoration_tpu_torch.config import MCTSConfig
     records, seeds = search_records(dirs)
     mcts_cfg = MCTSConfig()
@@ -955,6 +1095,9 @@ def phase_mcts(torch, dev, ckpt_dir, dirs, kernels):
                            36, printed)]
     device_checks = device_search_checks(torch, dev, ckpt_dir, records[0],
                                          seeds[0], printed)
+    single_node, expand_launches = expand_check(torch, dev, ckpt_dir,
+                                                records[0], seeds[0],
+                                                kernels)
     out = {"phase": "mcts", "nvidia_smi": nvidia_smi(),
            "trees": len(records), "iterations": mcts_cfg.iterations,
            "n_children": mcts_cfg.n_children,
@@ -965,7 +1108,7 @@ def phase_mcts(torch, dev, ckpt_dir, dirs, kernels):
            "mean_best_psnr_db": backends["host"]["mean_best_psnr_db"],
            "launches": backends["host"]["launches"],
            "backends": backends, "checks": checks,
-           "device_checks": device_checks}
+           "device_checks": device_checks, "single_node": single_node}
     emit(out)
     for c in checks:
         if not c["same_trace"] or c["prior_max_rel_diff"] > 1e-4 \
@@ -978,7 +1121,16 @@ def phase_mcts(torch, dev, ckpt_dir, dirs, kernels):
                 or c["reward_diff_db"] > 0.05:
             raise AssertionError(f"the device search on the card disagrees "
                                  f"with the {c['against']}")
-    return backends["host"]["launches"], backends["device"]["launches"]
+    c = single_node
+    if c["action_max_rel_diff"] > 2e-3 or c["prior_max_rel_diff"] > 1e-4 \
+            or not c["children_x_in_band"] \
+            or c["beam_ep_len"][0] != c["beam_ep_len"][1] \
+            or c["beam_psnr_diff_db"] > 0.05:
+        raise AssertionError(f"expand/beam_search on the card disagree with "
+                             f"the CPU: {c}")
+    return {"mcts": backends["host"]["launches"],
+            "mcts_device": backends["device"]["launches"],
+            "mcts_expand": expand_launches}
 
 
 def phase_mcts_bf16(torch, dev, ckpt_dir, dirs, kernels):
@@ -1635,8 +1787,8 @@ def main() -> int:
         kernels.reset_launch_counts()
         phase_eval_bf16(torch, dev, ckpt_dir, dirs, f32_eval)
         paths["eval_bf16"] = kernels.launch_counts()
-        paths["mcts"], paths["mcts_device"] = phase_mcts(
-            torch, dev, ckpt_dir, dirs, kernels)
+        paths["record"] = phase_record(torch, dev, ckpt_dir, kernels)
+        paths.update(phase_mcts(torch, dev, ckpt_dir, dirs, kernels))
         paths["mcts_bf16"] = phase_mcts_bf16(torch, dev, ckpt_dir, dirs,
                                              kernels)
         phase_unet_modes(torch, dev)
@@ -1654,7 +1806,9 @@ def main() -> int:
                        ("eval", ("conv_block", "kspace", "dt_decode")),
                        ("eval_bf16", ("conv_block_bf16", "kspace",
                                       "dt_decode")),
+                       ("record", ("conv_block", "kspace")),
                        ("mcts", search), ("mcts_device", search),
+                       ("mcts_expand", search),
                        ("mcts_bf16", search16),
                        ("serve_policy", ("conv_block", "kspace",
                                          "dt_decode")),

@@ -11,7 +11,8 @@ tree search.
         mcts --rtg 5 --max_timesteps 30
 
 Flags follow the JAX package's ``main.py`` for these modes; ``--device``
-(default ``cuda``) picks the device, and ``cpu`` must be asked for. A missing
+(default ``cuda``) picks the device, and ``cpu`` must be asked for; the JAX
+CLI's ``--platform {default,cpu}`` is taken as an alias of it. A missing
 checkpoint is replaced by random weights with a warning. ``eval`` and
 ``flex`` run the fused policy forward (kernel K3) where K3 takes the
 config (``--block_size`` up to 32 at the published widths) and the per-op
@@ -56,9 +57,14 @@ def build_parser() -> argparse.ArgumentParser:
         description="Decision Transformer for PnP-ADMM CSMRI (PyTorch/CUDA)")
     p.add_argument("--block_size", type=int, required=True)
     p.add_argument("--n_embeds", type=int, default=9)
-    p.add_argument("--device", default="cuda",
-                   help="torch device; 'cpu' runs the kernels' plain "
-                        "PyTorch versions")
+    p.add_argument("--device", default=None,
+                   help="torch device, the port's own flag (default "
+                        "cuda); 'cpu' runs the kernels' plain PyTorch "
+                        "versions")
+    p.add_argument("--platform", default=None, choices=["default", "cpu"],
+                   help="the JAX CLI's flag, an alias of --device: "
+                        "'default' is cuda, 'cpu' is cpu; giving both "
+                        "flags with different devices is an error")
     sub = p.add_subparsers(dest="mode", required=True)
 
     t = sub.add_parser("train")
@@ -323,8 +329,22 @@ def _train(args) -> None:
     print("Training complete; last losses:", trainer.last_losses)
 
 
+def _device_flags(parser: argparse.ArgumentParser, args) -> str:
+    """The device that ``--device`` and its alias ``--platform`` name
+    (default ``cuda``); a parser error when they name different ones."""
+    platform = {"default": "cuda", "cpu": "cpu", None: None}[args.platform]
+    if args.device is None:
+        return platform or "cuda"
+    if platform is not None and args.device.split(":")[0] != platform:
+        parser.error(f"--device {args.device} and --platform "
+                     f"{args.platform} name different devices")
+    return args.device
+
+
 def main(argv=None) -> None:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    args.device = _device_flags(parser, args)
     if args.mode == "train":
         _train(args)
     elif args.mode == "mcts":

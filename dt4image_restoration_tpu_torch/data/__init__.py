@@ -2,10 +2,11 @@ from .datasets import (BATCH_KEYS, EvaluationDataset,
                        EvaluationFlexibleDataset, EvaluationOptimalDataset,
                        TrainingDataset, extract_task, gather_scale_u8,
                        minmax_normalize)
-from .synthetic import make_mat_record, radial_mask, shepp_logan, \
-    write_eval_dir
+from .synthetic import cartesian_mask, make_mat_record, radial_mask, \
+    shepp_logan, write_eval_dir
 
 __all__ = ["BATCH_KEYS", "EvaluationDataset", "EvaluationFlexibleDataset",
-           "EvaluationOptimalDataset", "TrainingDataset", "extract_task",
-           "gather_scale_u8", "make_mat_record", "minmax_normalize",
-           "radial_mask", "shepp_logan", "write_eval_dir"]
+           "EvaluationOptimalDataset", "TrainingDataset", "cartesian_mask",
+           "extract_task", "gather_scale_u8", "make_mat_record",
+           "minmax_normalize", "radial_mask", "shepp_logan",
+           "write_eval_dir"]

@@ -36,6 +36,22 @@ def radial_mask(size: int = 128, n_spokes: int = 30, seed: int = 0
     return mask
 
 
+def cartesian_mask(size: int = 128, acceleration: int = 4,
+                   center_fraction: float = 0.08, seed: int = 0
+                   ) -> np.ndarray:
+    """1-D random Cartesian line mask (fastMRI-style) as an alternative
+    undersampling pattern."""
+    rng = np.random.default_rng(seed)
+    n_center = max(int(size * center_fraction), 1)
+    mask_cols = np.zeros(size, bool)
+    pad = (size - n_center) // 2
+    mask_cols[pad:pad + n_center] = True
+    n_remaining = max(size // acceleration - n_center, 0)
+    candidates = np.flatnonzero(~mask_cols)
+    mask_cols[rng.choice(candidates, n_remaining, replace=False)] = True
+    return np.broadcast_to(mask_cols, (size, size)).copy()
+
+
 def shepp_logan(size: int = 128) -> np.ndarray:
     """A simple Shepp-Logan-like ellipse phantom in [0, 1], (size, size)."""
     y, x = np.mgrid[-1:1:complex(0, size), -1:1:complex(0, size)]

@@ -19,6 +19,11 @@ Leaves are scored by a no-reference value function (ARNIQA or the proxy,
 ``models/arniqa.py``), memoised per node name; rewards back up by max. The
 result per tree is the PSNR of the best-scored rollout's final image.
 
+The JAX package's single-node API is here too: :meth:`MCTS.expand` expands
+one node (its children's samples drawn from a numpy generator, in the
+order the JAX package draws them) and :meth:`MCTS.beam_search` rolls one
+out, both through the pieces the batched round uses.
+
 Nodes share tensors: a leaf's children hold views of one stepped batch and
 one buffer snapshot. Nothing here writes into a tensor in place, and the
 greedy rollout works on copies of the buffers it is given, so a rollout
@@ -75,6 +80,9 @@ class Node:
         self.action: Optional[np.ndarray] = None  # set when expanded
         self.bufs: Optional[EvalBuffers] = None   # policy buffer snapshot
 
+    def set_policy_state(self, state: CSMRIState) -> None:
+        self.policy_state = state
+
     def __repr__(self) -> str:
         return f"Node(time = {self.time}, edge = {self.edge})_{self.index}"
 
@@ -84,6 +92,14 @@ class Node:
             self.reward = reward
             if self.parent is not None:
                 self.parent.backprop(reward)
+
+    def ancestry(self) -> List["Node"]:
+        """This node and its ancestors, up to the root."""
+        nodes, n = [], self
+        while n is not None:
+            nodes.append(n)
+            n = n.parent
+        return nodes
 
 
 def select_p_ucb(parent: Node) -> Node:
@@ -181,6 +197,43 @@ class MCTS:
                                              self._dt_embed_apply)
         self.traces: Optional[List[List[Dict[str, Any]]]] = None
 
+    @torch.no_grad()
+    def _seed_bufs(self, policy_x0: torch.Tensor, rtg0: torch.Tensor,
+                   task: torch.Tensor) -> EvalBuffers:
+        """A root's buffers: its observation ``policy_x0`` (B, H*W) and RTG
+        at slot 0 (:func:`seed_buffers`), on the search's device."""
+        dev = self.device
+        x = torch.as_tensor(policy_x0, device=dev)
+        return seed_buffers(
+            self.model_cfg, x.reshape(x.shape[0], -1).float(),
+            torch.as_tensor(rtg0, dtype=torch.float32, device=dev),
+            torch.as_tensor(task, device=dev).reshape(-1)[:x.shape[0]],
+            self.cfg.max_timesteps, self._encode)
+
+    def _expand_step(self, state: CSMRIState, action) -> CSMRIState:
+        """The expansion's env step. ``done`` is cleared on its output: the
+        stop flag is re-decided from each step's own action, so a node
+        stepped with a stop action still steps under its children's."""
+        out = admm_step(self.denoise, state, action)
+        return out.replace(done=torch.zeros_like(out.done))
+
+    def _expand(self, env_state: CSMRIState, action_dict,
+                sig_samples: torch.Tensor, mu_samples: torch.Tensor
+                ) -> CSMRIState:
+        """One batched env step over (children + 1) slots per tree: slot 0
+        the policy's own action ``action_dict`` ({k: (n,)}), slots 1.. the
+        sampled children (``sig_samples``, ``mu_samples``: (n, k))."""
+        slots = sig_samples.shape[1] + 1
+        tiled = CSMRIState(**{
+            f.name: getattr(env_state, f.name).repeat_interleave(slots, 0)
+            for f in dataclasses.fields(CSMRIState)})
+        return self._expand_step(tiled, {
+            "T": action_dict["T"].repeat_interleave(slots),
+            "sigma_d": torch.cat([action_dict["sigma_d"][:, None],
+                                  sig_samples], 1).reshape(-1),
+            "mu": torch.cat([action_dict["mu"][:, None], mu_samples],
+                            1).reshape(-1)})
+
     def _child_bufs(self, bufs: EvalBuffers, t: torch.Tensor,
                     ob: torch.Tensor, pred_rtg: torch.Tensor
                     ) -> EvalBuffers:
@@ -202,23 +255,13 @@ class MCTS:
         n, k = bufs.states.shape[0], self.cfg.n_children
         action_vec, action_dict, pred_rtg, bufs_upd = self._policy_step(
             bufs, t_vec)
-        loc_sig, loc_mu = action_dict["sigma_d"], action_dict["mu"]
-        sig_samples, _ = fold_sort_batch(loc_sig, z_sig,
+        sig_samples, _ = fold_sort_batch(action_dict["sigma_d"], z_sig,
                                          self.cfg.sigma_d_std)
         # The children's priors are the mu densities.
-        mu_samples, probs = fold_sort_batch(loc_mu, z_mu, self.cfg.mu_std)
-
-        tiled = CSMRIState(**{
-            f.name: getattr(env_state, f.name).repeat_interleave(k + 1, 0)
-            for f in dataclasses.fields(CSMRIState)})
-        exp_action = {
-            "T": action_dict["T"].repeat_interleave(k + 1),
-            "sigma_d": torch.cat([loc_sig[:, None], sig_samples],
-                                 1).reshape(-1),
-            "mu": torch.cat([loc_mu[:, None], mu_samples], 1).reshape(-1),
-        }
-        stepped = admm_step(self.denoise, tiled, exp_action)
-        stepped = stepped.replace(done=torch.zeros_like(stepped.done))
+        mu_samples, probs = fold_sort_batch(action_dict["mu"], z_mu,
+                                            self.cfg.mu_std)
+        stepped = self._expand(env_state, action_dict, sig_samples,
+                               mu_samples)
         slot0_ob = stepped.x.reshape(n, k + 1, -1)[:, 0]
         new_bufs = self._child_bufs(bufs_upd, t_vec + 1, slot0_ob, pred_rtg)
 
@@ -228,6 +271,66 @@ class MCTS:
             t_vec, encode=self._encode, dt_embed_apply=self._dt_embed_apply)
         return (action_vec, pred_rtg, probs, stepped, new_bufs, final.x,
                 ep_len)
+
+    @torch.no_grad()
+    def expand(self, node: Node, task: int, rng: np.random.Generator,
+               index_tree: int) -> Tuple[Node, Dict[str, float], float]:
+        """Expand one node, as the JAX package's ``MCTS.expand``: the policy
+        step at the node's depth; ``n_children`` sigma_d samples, then as
+        many mu samples, drawn from ``rng`` by :func:`sample_actions`; one
+        batched env step whose slot 0 (the policy's own action) becomes
+        the node's policy state and whose slots 1.. become the children,
+        with the mu densities as priors. ``node.bufs`` stays as it was;
+        the children share one snapshot holding the node's action at its
+        slot. ``task`` is carried by the buffers and unused here. Returns
+        ``(node, action dict of floats, predicted RTG)``."""
+        del task
+        k = self.cfg.n_children
+        action_vec, action_dict, pred_rtg, bufs_upd = self._policy_step(
+            node.bufs, node.time)
+        node.action = action_vec[0].cpu().numpy()
+        adict = {key: float(v[0]) for key, v in action_dict.items()}
+        sig_samples, _ = sample_actions(rng, adict["sigma_d"],
+                                        self.cfg.sigma_d_std, k)
+        mu_samples, probs = sample_actions(rng, adict["mu"],
+                                           self.cfg.mu_std, k)
+        stepped = self._expand(
+            node.env_state, action_dict,
+            torch.from_numpy(sig_samples[None]).to(self.device),
+            torch.from_numpy(mu_samples[None]).to(self.device))
+        node.set_policy_state(_rows(stepped, 0, 1))
+        pred_rtg_f = float(pred_rtg[0])
+        shared = self._child_bufs(
+            bufs_upd, torch.tensor([node.time + 1], device=self.device),
+            node.policy_state.x.reshape(1, -1), pred_rtg)
+        for c in range(k):
+            child = Node(time=node.time + 1, prob=float(probs[c]),
+                         parent=node, edge=c, index=index_tree,
+                         env_state=_rows(stepped, c + 1, c + 2),
+                         policy_state=node.policy_state,
+                         policy_rtg=pred_rtg_f)
+            child.bufs = shared
+            node.children.append(child)
+        return node, adict, pred_rtg_f
+
+    @torch.no_grad()
+    def beam_search(self, node: Node, task: int
+                    ) -> Tuple[float, np.ndarray, int]:
+        """The greedy rollout from ``node`` to the horizon, as the JAX
+        package's ``MCTS.beam_search``: ``(value of the final image, the
+        final image (1, H, W), episode length)``. ``task`` is carried by
+        the buffers and unused here."""
+        del task
+        _, action_dict, _, bufs = self._policy_step(node.bufs, node.time)
+        final, _, ep_len, _ = greedy_rollout(
+            self._dt_apply, self.denoise, self.model_cfg, node.env_state,
+            bufs, action_dict,
+            torch.full((1,), node.policy_rtg, dtype=torch.float32,
+                       device=self.device),
+            self.cfg.max_timesteps, node.time, encode=self._encode,
+            dt_embed_apply=self._dt_embed_apply)
+        x = final.x.cpu().numpy().reshape(1, *final.x.shape[-2:])
+        return float(self.value_fn(x)), x, int(ep_len[0])
 
     def _round(self, i: int, roots: List[Node], rngs, rewards_dicts,
                states_dicts) -> None:
@@ -325,12 +428,9 @@ class MCTS:
                         policy_rtg=rtg0)
             # The root observation is the reset state's x (the clipped
             # record x0), not the dataset's policy state.
-            root.bufs = seed_buffers(
-                self.model_cfg, env_state.x_real.reshape(1, -1),
-                torch.tensor([rtg0], device=dev),
-                torch.as_tensor(np.asarray(task0).reshape(-1)[:1],
-                                device=dev),
-                self.cfg.max_timesteps, self._encode)
+            root.bufs = self._seed_bufs(
+                env_state.x_real.reshape(1, -1), torch.tensor([rtg0]),
+                torch.from_numpy(np.asarray(task0).reshape(-1)[:1]))
             root.s_visits = 1
             roots.append(root)
             rewards_dicts.append({})

@@ -64,7 +64,7 @@ def restore_checkpoint(path: str) -> Any:
 def save_dt_reference(path: str, state_dict, cfg: ModelConfig) -> None:
     """Write a port DT state dict as a reference-layout ``.pt`` file
     (:func:`utils.convert.dt_to_reference`)."""
-    save_checkpoint(path, dt_to_reference(state_dict, cfg))
+    save_checkpoint(path, dt_to_reference(state_dict, cfg.block_size))
 
 
 class AsyncCheckpointSaver:

@@ -10,15 +10,16 @@ Two sources, each turned into a port ``state_dict``:
   * the reference's published PyTorch checkpoints (``unet-nm.pt``,
     ``model_experiment_{1,2}.pt``) and the ARNIQA hub checkpoint:
     :func:`unet_from_reference`, :func:`dt_from_reference`,
-    :func:`arniqa_from_hub`. Only key names change. :func:`dt_to_reference`
-    writes a port DT back in the reference's layout.
+    :func:`arniqa_from_hub`. Only key names change. :func:`unet_to_reference`
+    and :func:`dt_to_reference` write a port model back in the reference's
+    layout.
 
 Every converter is strict: a missing or unconsumed key raises.
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -95,6 +96,32 @@ def unet_from_reference(state_dict: Mapping[str, Any]
         if m is None:
             raise ValueError(f"unrecognized U-Net checkpoint key: {key}")
         sd[f"net.{m.group(1)}.conv{m.group(2)}.{m.group(3)}"] = _t(v)
+    return sd
+
+
+def unet_to_reference(state_dict: Mapping[str, Any]
+                      ) -> Dict[str, torch.Tensor]:
+    """Port ``UNetDenoiser`` state dict -> the reference U-Net's
+    ``state_dict`` layout (the inverse of :func:`unet_from_reference`; the
+    keys of the JAX package's ``export_unet_state_dict``). Values are
+    float32 CPU copies."""
+    sd = {}
+    for key, v in _strip(state_dict).items():
+        if key in ("net.outc.weight", "net.outc.bias"):
+            sd["outc.conv." + key.rsplit(".", 1)[1]] = _t(v).cpu()
+            continue
+        m = re.fullmatch(r"net\.(inc|down\d|up\d)\.conv(\d)\.(weight|bias)",
+                         key)
+        if m is None:
+            raise ValueError(f"unrecognized port U-Net key: {key}")
+        block, i, leaf = m.groups()
+        if block == "inc":
+            holder = "inc.conv"
+        elif block.startswith("down"):
+            holder = f"{block}.mpconv.1"
+        else:
+            holder = f"{block}.conv"
+        sd[f"{holder}.conv-{i}.conv2d.{leaf}"] = _t(v).cpu()
     return sd
 
 
@@ -188,13 +215,16 @@ _DT_TO_REF = [
 ]
 
 
-def dt_to_reference(state_dict: Mapping[str, Any], cfg: ModelConfig
+def dt_to_reference(state_dict: Mapping[str, Any],
+                    block_size: Optional[int] = None
                     ) -> Dict[str, torch.Tensor]:
     """Port DT state dict -> the reference's ``state_dict`` layout (the
-    inverse of :func:`dt_from_reference`), with the causal-mask
-    ``masking`` buffer of each attention block,
+    inverse of :func:`dt_from_reference`). With ``block_size``, also the
+    causal-mask ``masking`` buffer of each attention block,
     ``tril(ones(block_size, block_size)).view(1, 1, B, B)``, so that the
-    reference model loads it strictly. Values are float32 CPU copies."""
+    reference model loads it strictly (the JAX package's
+    ``export_dt_state_dict`` does the same). Values are float32 CPU
+    copies."""
     sd = {}
     for key, v in state_dict.items():
         for pat, repl in _DT_TO_REF:
@@ -203,10 +233,12 @@ def dt_to_reference(state_dict: Mapping[str, Any], cfg: ModelConfig
                 break
         else:
             raise ValueError(f"unrecognized port DT key: {key}")
-    mask = torch.ones(cfg.block_size, cfg.block_size).tril().view(
-        1, 1, cfg.block_size, cfg.block_size)
-    for i in range(cfg.n_blocks):
-        sd[f"transformer.{i}.c_att.masking"] = mask.clone()
+    if block_size is not None:
+        mask = torch.ones(block_size, block_size).tril().view(
+            1, 1, block_size, block_size)
+        for i in sorted({int(m.group(1)) for k in state_dict
+                         if (m := re.match(r"blocks\.(\d+)\.", k))}):
+            sd[f"transformer.{i}.c_att.masking"] = mask.clone()
     return sd
 
 

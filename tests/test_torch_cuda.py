@@ -56,6 +56,8 @@ def _f32(rng, shape, scale=1.0):
     ((1, 3, 7, 9), 16, 1),       # smaller than one tile
     ((2, 2, 128, 128), 32, 3),   # the U-Net's inc
     ((2, 96, 128, 128), 32, 3),  # the U-Net's up4
+    ((128, 2, 128, 128), 32, 3),   # inc at the expert recorder's chunk
+    ((128, 96, 128, 128), 32, 3),  # up4 at the expert recorder's chunk
 ])
 def test_conv_block_kernel_matches_plain(dev, shape, feats, layers):
     rng = np.random.default_rng(0)
@@ -889,3 +891,71 @@ def test_bfloat16_eval_on_card_matches_cpu(dev, tmp_path):
     np.testing.assert_array_equal(gpu["episode_len"], cpu["episode_len"])
     np.testing.assert_allclose(gpu["reward"], cpu["reward"], rtol=0,
                                atol=0.15)
+
+
+# --- the expert corpus and the host search's single-node API ---------------
+
+def test_expert_recording_on_card_matches_cpu(dev):
+    """Three trajectories recorded in chunks of two on the card (K1, K2)
+    and on the CPU: the same tasks, PSNRs within 1e-3 dB, uint8 states
+    within 1 LSB."""
+    from dt4image_restoration_tpu_torch.data import expert
+    sd = random_unet_state_dict(0, base_channels=8)
+    runs = {}
+    for device in ("cpu", dev):
+        unet = UNetDenoiser(8).eval().requires_grad_(False)
+        unet.load_state_dict(sd)
+        kernels.reset_launch_counts()
+        runs[str(device)] = list(expert.expert_trajectories(
+            unet.to(device), n_traj=3, ep_len=3, size=48, batch_chunk=2,
+            device=device))
+        counts = kernels.launch_counts()
+    assert counts["conv_block"] > 0 and counts["kspace"] > 0
+    for a, b in zip(runs[str(dev)], runs["cpu"], strict=True):
+        assert (a.index, a.task, a.actions) == (b.index, b.task, b.actions)
+        np.testing.assert_allclose(a.psnrs, b.psnrs, rtol=0, atol=1e-3)
+        assert np.abs(a.states.astype(int) - b.states.astype(int)).max() \
+            <= 1
+
+
+def test_expand_and_beam_search_on_card_match_cpu(dev, tmp_path):
+    """MCTS.expand of one root and MCTS.beam_search from a child on the card
+    (K1, K2, K4, K5) against the CPU: priors within 1e-4, the children's
+    states within the U-Net band, equal episode lengths and the final PSNR
+    within 0.05 dB."""
+    from dt4image_restoration_tpu_torch.env import reset_from_mat
+    from dt4image_restoration_tpu_torch.inference import Node
+    from dt4image_restoration_tpu_torch.ops.metrics import psnr
+    cfg = ModelConfig(block_size=18, use_pallas=True)
+    d = write_eval_dir(str(tmp_path / "4_15"), "4_15", n=1, seed=15)
+    (_, rtg0, _, task0), mat = EvaluationDataset(d, 5.0)[0]
+    runs = {}
+    for device in ("cpu", dev):
+        unet = UNetDenoiser().eval().requires_grad_(False)
+        unet.load_state_dict(random_unet_state_dict(0))
+        m = MCTS(dt=_long_window_policy(cfg, device), denoise=unet.to(device),
+                 model_cfg=cfg, cfg=MCTSConfig(max_timesteps=8),
+                 value_fn=proxy_value_fn, device=device)
+        env = reset_from_mat(mat, device=device)
+        root = Node(0, 1.0, None, 0, 0, env, env, float(rtg0[0, 0]))
+        root.bufs = m._seed_bufs(env.x.reshape(1, -1),
+                                 torch.tensor(rtg0).reshape(()),
+                                 torch.as_tensor(task0))
+        kernels.reset_launch_counts()
+        m.expand(root, int(task0[0]), np.random.default_rng(3), 0)
+        _, x, ep_len = m.beam_search(root.children[1], int(task0[0]))
+        counts = kernels.launch_counts()
+        gt = root.env_state.gt.cpu().reshape(x.shape)
+        runs[str(device)] = (
+            [c.prob for c in root.children],
+            torch.cat([c.env_state.x.cpu() for c in root.children]), ep_len,
+            float(psnr(gt, torch.from_numpy(x))[0, 0]))
+    assert all(counts[k] > 0 for k in ("conv_block", "kspace", "attention",
+                                       "layernorm"))
+    (p_cpu, x_cpu, len_cpu, db_cpu) = runs["cpu"]
+    (p_gpu, x_gpu, len_gpu, db_gpu) = runs[str(dev)]
+    np.testing.assert_allclose(p_gpu, p_cpu, rtol=1e-4)
+    np.testing.assert_allclose(x_gpu.numpy(), x_cpu.numpy(), rtol=1e-3,
+                               atol=2e-4)
+    assert len_gpu == len_cpu == 8
+    assert abs(db_gpu - db_cpu) <= 0.05

@@ -271,3 +271,162 @@ def test_rollout_leaves_shared_sibling_buffers_intact(setup):
                        action_dict, pred_rtg, 8, start_time=1)
     for name, t in before.items():
         assert torch.equal(getattr(siblings[1].bufs, name), t), name
+
+
+# --- the single-node API: expand, beam_search, ancestry ------------------------
+
+def _single_node_pair(s, iterations=4, max_timesteps=8):
+    """One search object and one root in each framework on the setup's
+    weights and first record, the root's buffers seeded as the JAX tests
+    seed them (``_seed_bufs`` on the record's policy state)."""
+    from dt4image_restoration_tpu.env import reset_from_mat as j_reset
+    scfg = dict(iterations=iterations, max_timesteps=max_timesteps)
+    (states0, rtg0, _, task0), mat = JEvaluationDataset(
+        s["dir"], rtg_target=5.0)[0]
+    jm = jmcts.MCTS(dt_apply=j_make_dt_apply(s["jcfg"]),
+                    dt_params=s["params"], denoise=s["j_denoise"],
+                    model_cfg=s["jcfg"], cfg=JMCTSConfig(**scfg),
+                    value_fn=j_proxy_value_fn)
+    jenv = j_reset(mat)
+    jroot = jmcts.Node(0, 1.0, None, 0, 0, jenv, jenv, float(rtg0[0, 0]))
+    jroot.bufs = jm._seed_bufs(jnp.asarray(states0),
+                               jnp.asarray(rtg0).reshape(()),
+                               jnp.asarray(task0))
+
+    m = MCTS(dt=s["dt"], denoise=s["model_den"], model_cfg=s["cfg"],
+             cfg=MCTSConfig(**scfg), value_fn=proxy_value_fn, device="cpu")
+    env = reset_from_mat(mat, device="cpu")
+    root = Node(0, 1.0, None, 0, 0, env, env, float(rtg0[0, 0]))
+    root.bufs = m._seed_bufs(torch.from_numpy(states0),
+                             torch.tensor(rtg0).reshape(()),
+                             torch.from_numpy(np.asarray(task0)))
+    return (m, root), (jm, jroot), int(np.asarray(task0).reshape(-1)[0])
+
+
+def _hold_expansions(node, adict, pred, jnode, jadict, jpred):
+    """One expansion against JAX's: action, RTG, priors, children."""
+    assert set(adict) == set(jadict) == {"T", "sigma_d", "mu"}
+    for k in adict:
+        np.testing.assert_allclose(adict[k], jadict[k], rtol=2e-3)
+    np.testing.assert_allclose(node.action, np.asarray(jnode.action),
+                               rtol=2e-3, atol=1e-6)
+    np.testing.assert_allclose(pred, jpred, rtol=2e-3, atol=1e-5)
+    assert len(node.children) == len(jnode.children) == 5
+    np.testing.assert_allclose([c.prob for c in node.children],
+                               [c.prob for c in jnode.children], rtol=1e-6)
+    np.testing.assert_allclose(node.policy_state.x.numpy(),
+                               np.asarray(jnode.policy_state.x), rtol=1e-3,
+                               atol=2e-4)
+    for c, jc in zip(node.children, jnode.children):
+        assert (c.time, c.edge, c.index) == (jc.time, jc.edge, jc.index)
+        assert c.policy_rtg == pytest.approx(jc.policy_rtg, rel=2e-3)
+        np.testing.assert_allclose(c.env_state.x.numpy(),
+                                   np.asarray(jc.env_state.x), rtol=1e-3,
+                                   atol=2e-4)
+        assert not c.env_state.done.any()
+        assert c.bufs is node.children[0].bufs      # one shared snapshot
+        assert c.policy_state is node.policy_state
+
+
+def test_expand_matches_jax(setup):
+    """The root's expansion, then its first child's, against JAX's on the
+    same weights and RNG seed: the model action within the DT band, priors
+    within 1e-6, the children's states within the U-Net band."""
+    (m, root), (jm, jroot), task = _single_node_pair(setup)
+    before = {f.name: getattr(root.bufs, f.name).clone()
+              for f in dataclasses.fields(root.bufs)
+              if getattr(root.bufs, f.name) is not None}
+    out = m.expand(root, task, np.random.default_rng(1), 0)
+    jout = jm.expand(jroot, task, np.random.default_rng(1), 0)
+    assert out[0] is root
+    _hold_expansions(*out, *jout)
+    # The node's own buffers are as they were; the children's hold its
+    # action at its slot.
+    for name, t in before.items():
+        assert torch.equal(getattr(root.bufs, name), t), name
+    np.testing.assert_allclose(
+        root.children[0].bufs.actions[0, root.time].numpy(), root.action,
+        rtol=1e-6)
+
+    child, jchild = root.children[0], jroot.children[0]
+    out = m.expand(child, task, np.random.default_rng(2), 1)
+    jout = jm.expand(jchild, task, np.random.default_rng(2), 1)
+    _hold_expansions(*out, *jout)
+    grandchild = child.children[3]
+    assert grandchild.ancestry() == [grandchild, child, root]
+    assert [n.time for n in grandchild.ancestry()] == [2, 1, 0]
+    np.testing.assert_allclose(
+        grandchild.bufs.actions[0, :2].numpy(),
+        np.stack([root.action, child.action]), rtol=1e-6)
+
+
+def test_expand_draws_children_from_rng_as_jax(setup):
+    """sigma_d samples first, then mu; priors are the mu densities (twin of
+    tests/test_mcts.py::test_expand_creates_batched_children)."""
+    (m, root), _, task = _single_node_pair(setup)
+    node, adict, pred_rtg = m.expand(root, task, np.random.default_rng(1),
+                                     0)
+    assert node.action.shape == (3,) and np.isfinite(pred_rtg)
+    rng = np.random.default_rng(1)
+    sig, _ = sample_actions(rng, adict["sigma_d"], m.cfg.sigma_d_std, 5)
+    mu, mu_probs = sample_actions(rng, adict["mu"], m.cfg.mu_std, 5)
+    np.testing.assert_allclose([c.prob for c in node.children], mu_probs,
+                               rtol=1e-6)
+    assert max(c.prob for c in node.children) > 50
+    for c in node.children:
+        assert c.time == 1 and c.env_state.x.shape == (1, 1, SIZE, SIZE)
+    x0 = node.children[0].env_state.x
+    assert any(not torch.allclose(x0, c.env_state.x)
+               for c in node.children[1:])
+    # Slot 0 (the policy state) steps under the model's own action: the
+    # same state as a one-slot step with it.
+    single = m._expand_step(root.env_state, {k: torch.tensor([v])
+                                             for k, v in adict.items()})
+    torch.testing.assert_close(node.policy_state.x, single.x, rtol=1e-5,
+                               atol=1e-6)
+    # The children's sampled parameters are these draws, in this order:
+    # one-slot steps with them give the children's states.
+    for c, s_d, mu_c in zip(node.children, sig, mu):
+        one = m._expand_step(root.env_state, {
+            "T": torch.tensor([adict["T"]]), "sigma_d": torch.tensor([s_d]),
+            "mu": torch.tensor([mu_c])})
+        torch.testing.assert_close(c.env_state.x, one.x, rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_expansion_done_flag_is_transient_matches_jax(setup):
+    """A stop action (T > 0.5) freezes the stepped slots and the done flag
+    is cleared on the expansion's outputs (twin of
+    tests/test_mcts.py::test_expansion_done_flag_is_transient)."""
+    (m, root), (jm, jroot), _ = _single_node_pair(setup)
+    action = {"T": np.asarray([0.9, 0.9], np.float32),
+              "sigma_d": np.asarray([0.1, 0.1], np.float32),
+              "mu": np.asarray([0.3, 0.3], np.float32)}
+    tiled = tmcts._cat([root.env_state, root.env_state], type(root.env_state))
+    stepped = m._expand_step(tiled, {k: torch.from_numpy(v)
+                                     for k, v in action.items()})
+    jstepped = jm._expand_step(
+        jax.tree.map(lambda x: jnp.repeat(x, 2, axis=0), jroot.env_state),
+        action)
+    assert not stepped.done.any() and not np.asarray(jstepped.done).any()
+    assert torch.equal(stepped.x[0], root.env_state.x[0])
+    np.testing.assert_array_equal(stepped.x.numpy(),
+                                  np.asarray(jstepped.x))
+
+
+@pytest.mark.parametrize("expanded", [False, True])
+def test_beam_search_matches_jax(setup, expanded):
+    """The greedy rollout from the root, or from a child of the root's
+    expansion, against JAX's: value, final image and episode length."""
+    (m, root), (jm, jroot), task = _single_node_pair(setup)
+    node, jnode = root, jroot
+    if expanded:
+        m.expand(root, task, np.random.default_rng(4), 0)
+        jm.expand(jroot, task, np.random.default_rng(4), 0)
+        node, jnode = root.children[2], jroot.children[2]
+    value, x, ep_len = m.beam_search(node, task)
+    jvalue, jx, jep_len = jm.beam_search(jnode, task)
+    assert ep_len == jep_len == m.cfg.max_timesteps
+    assert x.shape == np.asarray(jx).shape == (1, SIZE, SIZE)
+    np.testing.assert_allclose(value, jvalue, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(x, np.asarray(jx), rtol=1e-3, atol=2e-4)

@@ -21,6 +21,7 @@ PORT_MODULES = [
     "dt4image_restoration_tpu_torch.__main__",
     "dt4image_restoration_tpu_torch.config",
     "dt4image_restoration_tpu_torch.data",
+    "dt4image_restoration_tpu_torch.data.expert",
     "dt4image_restoration_tpu_torch.env",
     "dt4image_restoration_tpu_torch.inference",
     "dt4image_restoration_tpu_torch.inference.mcts",
@@ -31,6 +32,9 @@ PORT_MODULES = [
     "dt4image_restoration_tpu_torch.ops.kernels",
     "dt4image_restoration_tpu_torch.ops.kernels._build",
     "dt4image_restoration_tpu_torch.serving",
+    "dt4image_restoration_tpu_torch.tools",
+    "dt4image_restoration_tpu_torch.tools.export_checkpoint",
+    "dt4image_restoration_tpu_torch.tools.make_dataset",
     "dt4image_restoration_tpu_torch.utils.convert",
     "dt4image_restoration_tpu_torch.utils.loaders",
 ]
@@ -80,7 +84,8 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("entry", ["reset", "loader", "evaluator", "env",
                                    "search", "arniqa", "device_search",
-                                   "service"])
+                                   "service", "record", "rollout_expert",
+                                   "make_dataset"])
 def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from dt4image_restoration_tpu_torch.config import MCTSConfig, ModelConfig
@@ -115,6 +120,19 @@ def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
             RestorationService(denoise=UNetDenoiser(8), mode="fixed")
         elif entry == "arniqa":
             load_arniqa(str(tmp_path / "missing.pt"))
+        elif entry == "record":
+            from dt4image_restoration_tpu_torch.data.expert import (
+                record_expert_corpus)
+            record_expert_corpus(str(tmp_path), lambda x, s: x, n_traj=1,
+                                 ep_len=1, size=16)
+        elif entry == "rollout_expert":
+            from dt4image_restoration_tpu_torch.data.expert import (
+                rollout_expert)
+            rollout_expert(lambda s, a: s, make_mat_record(size=16), 1)
+        elif entry == "make_dataset":
+            from dt4image_restoration_tpu_torch.tools import make_dataset
+            make_dataset.main(["--out", str(tmp_path / "synth"),
+                               "--n_traj", "1"])
         else:
             PnPEnv(UNetDenoiser(8)).reset(make_mat_record(size=16))
 
@@ -245,3 +263,47 @@ def test_cli_mcts_backends_on_cpu(tmp_path, monkeypatch, capsys, flags,
     the device search, and so do --dtype bfloat16 and --unet_packed."""
     assert _cli_mcts(tmp_path, monkeypatch, capsys, *flags,
                      images=1) == [want]
+
+
+@pytest.mark.parametrize("flags,want", [
+    ([], "cuda"), (["--platform", "default"], "cuda"),
+    (["--platform", "cpu"], "cpu"), (["--device", "cpu"], "cpu"),
+    (["--device", "cpu", "--platform", "cpu"], "cpu"),
+    (["--device", "cuda:0", "--platform", "default"], "cuda:0"),
+])
+def test_platform_is_an_alias_of_device(flags, want):
+    """--platform {default,cpu}, the JAX command line's flag, names the
+    device as --device does; --help says which flag is the port's own."""
+    from dt4image_restoration_tpu_torch import __main__ as cli
+    parser = cli.build_parser()
+    args = parser.parse_args(["--block_size", "18", *flags, "eval",
+                              "--rtg", "10"])
+    assert cli._device_flags(parser, args) == want
+    assert "the port's own flag" in parser.format_help()
+
+
+@pytest.mark.parametrize("flags", [["--device", "cpu", "--platform",
+                                    "default"],
+                                   ["--device", "cuda", "--platform", "cpu"]])
+def test_conflicting_device_flags_are_refused(flags, capsys):
+    from dt4image_restoration_tpu_torch import __main__ as cli
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--block_size", "18", *flags, "eval", "--rtg", "10"])
+    assert e.value.code == 2
+    assert "name different devices" in capsys.readouterr().err
+
+
+def test_cli_platform_cpu_runs_like_device_cpu(tmp_path, capsys):
+    """eval with --platform cpu prints what it prints with --device cpu."""
+    from dt4image_restoration_tpu_torch import __main__ as cli
+    from dt4image_restoration_tpu_torch.data import write_eval_dir
+    d = write_eval_dir(str(tmp_path / "4_10"), "4_10", n=1, size=128)
+    outs = []
+    for flag in ("--platform", "--device"):
+        cli.main(["--block_size", "18", flag, "cpu", "eval", "--rtg", "10",
+                  "--max_timesteps", "6",
+                  "--checkpoint", str(tmp_path / "none.pt"),
+                  "--denoiser_ckpt", str(tmp_path / "none.pt"),
+                  "--data_dirs", d])
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and "Average reward" in outs[0]
