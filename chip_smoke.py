@@ -33,6 +33,16 @@ prints one JSON line per phase. The paths:
     single-node API (``MCTS.expand`` of one root, ``MCTS.beam_search``
     from a child: the launch path ``mcts_expand``) on the card against the
     CPU; then ARNIQA scores of 16 slices on the card and on the CPU;
+  * mesh: evaluation, search and serving over a mesh
+    (``training/sharding.py:make_mesh``) on the one card: the eval
+    phase's 63 slices on a mesh of one shard (equal to no mesh, bit for
+    bit) and of two shards on cuda:0 (64 padded, two rollouts of 32 one
+    after another); two Gloo ranks spawned on cuda:0 running
+    ``Evaluator.run`` on the 9 directories and
+    ``DeviceMCTS.run_global_batches`` on 16 trees x 3 rounds; the device
+    search on two shards in one process; ``RestorationService`` on two
+    shards in fixed and policy modes at batch 16. Each is held against one
+    process without a mesh;
   * serve: ``RestorationService`` at the traffic of
     benchmarks/serving_bench.py: policy mode at batch 16 (a burst of 64
     requests at pipeline_depth 1 and 2, then 32 concurrent clients x 8
@@ -109,6 +119,10 @@ SERVE_RTG, SERVE_TASK = 0.6, 2
 EXPANSION_BATCH = 96                   # the search's 6-slot expansion
 RECORD_BATCH, RECORD_EP_LEN = 128, 8    # make_dataset's chunk, --ep_len
 ROLLOUT_REPEATS = 20                   # one-slice rollouts for a median
+MESH_SEARCH_ROUNDS = 3                 # the mesh phase's searches
+MESH_EVAL_DB = 0.01                    # sharded eval against one shard
+SEARCH_DB = 0.05                       # the search band (PARITY.md)
+MESH_JOIN_S = 600                      # the mesh phase's ranks' limit
 TRAIN_BATCH, TRAIN_T = 48, 6           # TrainerConfig's batch, 18 tokens
 TRAIN_STEPS, TRAIN_EPOCHS = 25, 2      # batches an epoch, epochs
 H100_F32_FLOPS = 67e12                 # float32 outside the tensor cores
@@ -1133,6 +1147,237 @@ def phase_mcts(torch, dev, ckpt_dir, dirs, kernels):
             "mcts_expand": expand_launches}
 
 
+def _mesh_evaluator(dev, ckpt_dir, mesh):
+    """The eval phase's Evaluator (published widths, random weights) on
+    ``mesh``."""
+    from dt4image_restoration_tpu_torch.config import ModelConfig
+    from dt4image_restoration_tpu_torch.inference import Evaluator
+    from dt4image_restoration_tpu_torch.utils.loaders import load_denoiser
+    cfg = ModelConfig(block_size=18, n_embeds=9, mode="norm")
+    return Evaluator(
+        dt=_load_policy(cfg, ckpt_dir, dev),
+        denoise=load_denoiser(os.path.join(ckpt_dir, "unet-nm.pt"),
+                              device=dev),
+        cfg=cfg, max_timesteps=30, rtg_target=10.0, device=dev, mesh=mesh)
+
+
+def _evaluated(ev, dirs):
+    """``ev.run(dirs)``: (metrics, the aggregates it printed)."""
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        ev.run(dirs)
+    return ev.last_metrics, printed.getvalue()
+
+
+def mesh_rank(rank, port, device, ckpt_dir, dirs, out_path):
+    """One of the mesh phase's two ranks, both on ``device``: join a Gloo
+    group
+    of two at ``port``, run ``Evaluator.run`` on ``dirs`` over a mesh of
+    the two processes (a warm-up run, then one timed), then
+    ``DeviceMCTS.run_global_batches`` on the search's 16 trees, launches
+    counted over each; write the results to ``out_path.<rank>`` as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    from dt4image_restoration_tpu_torch.config import MCTSConfig
+    from dt4image_restoration_tpu_torch.ops import kernels
+    from dt4image_restoration_tpu_torch.training.sharding import make_mesh
+    from dt4image_restoration_tpu_torch.utils.device import resolve_device
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    try:
+        dev = resolve_device(device)
+        mesh = make_mesh(devices=[dev])
+        ev = _mesh_evaluator(dev, ckpt_dir, mesh)
+        _evaluated(ev, dirs)                                # warm-up
+        kernels.reset_launch_counts()
+        m, printed = _evaluated(ev, dirs)
+        eval_launches = kernels.launch_counts()
+        records, seeds = search_records(dirs)
+        search = _search(torch, dev, ckpt_dir,
+                         MCTSConfig(iterations=MESH_SEARCH_ROUNDS),
+                         backend="device", mesh=mesh)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rewards = search.run_global_batches(records, seeds,
+                                            batch_size=SEARCH_BATCH)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        search_s = time.perf_counter() - t0
+        search_launches = kernels.launch_counts()
+        with open(f"{out_path}.{rank}", "w") as f:
+            json.dump({
+                "printed": printed, "reward": m["reward"].tolist(),
+                "episode_len": m["episode_len"].tolist(),
+                "wall_s": m["wall_time_s"], "eval_launches": eval_launches,
+                "search_rewards": rewards, "search_s": search_s,
+                "search_launches": search_launches}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_mesh_ranks(dev, ckpt_dir, dirs, tmp):
+    """Run :func:`mesh_rank` in two spawned processes on ``dev``; their
+    results and the seconds from the spawn to the last join. A
+    rank that fails or outlives MESH_JOIN_S fails the run, and is killed."""
+    import multiprocessing
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out_path = os.path.join(tmp, "mesh_rank")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(r, port, str(dev), ckpt_dir, dirs,
+                               out_path))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=max(1.0, MESH_JOIN_S
+                               - (time.perf_counter() - t0)))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join(10)
+    if alive or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"mesh ranks: exit codes "
+                             f"{[p.exitcode for p in procs]}, killed "
+                             f"{len(alive)} still running after "
+                             f"{MESH_JOIN_S} s")
+    ranks = []
+    for r in range(2):
+        with open(f"{out_path}.{r}") as f:
+            ranks.append(json.load(f))
+    return ranks, time.perf_counter() - t0
+
+
+def phase_mesh(torch, dev, ckpt_dir, dirs, tmp, kernels):
+    """Evaluation, search and serving over a mesh on the one card, each
+    against one process without a mesh: (a) the eval phase's 63 slices on
+    a mesh of one shard, bit-equal; (b) on two shards of cuda:0 (64
+    padded), lengths equal and rewards within MESH_EVAL_DB; (c) two Gloo
+    ranks on cuda:0 running Evaluator.run on the 9 directories, with
+    (b)'s checks and the same aggregates printed by both; (d) the device
+    search of 16 trees x 3 rounds over the two ranks
+    (run_global_batches) and over two shards in one process, within the
+    search band; (e) RestorationService on two shards in fixed and policy
+    modes at batch 16, images within 1e-5 and lengths equal. Returns the
+    launches of each path."""
+    import numpy as np
+
+    from dt4image_restoration_tpu_torch.config import MCTSConfig
+    from dt4image_restoration_tpu_torch.training.sharding import make_mesh
+    t_phase = time.perf_counter()
+    one, two = make_mesh(devices=[dev]), make_mesh(devices=[dev, dev])
+    paths, failed = {}, []
+    out = {"phase": "mesh", "nvidia_smi": nvidia_smi()}
+
+    m0, _ = _evaluated(_mesh_evaluator(dev, ckpt_dir, None), dirs)
+    kernels.reset_launch_counts()
+    m1, _ = _evaluated(_mesh_evaluator(dev, ckpt_dir, one), dirs)
+    paths["mesh_one"] = kernels.launch_counts()
+    kernels.reset_launch_counts()
+    m2, _ = _evaluated(_mesh_evaluator(dev, ckpt_dir, two), dirs)
+    paths["mesh_eval"] = kernels.launch_counts()
+
+    def against_one(m):
+        return {"episode_len_equal": np.asarray(m["episode_len"]).tolist()
+                == m0["episode_len"].tolist(),
+                "reward_max_abs_diff_db": float(np.abs(
+                    np.asarray(m["reward"]) - m0["reward"]).max())}
+
+    out["eval_unsharded_s"] = m0["wall_time_s"]
+    out["eval_one_shard_s"] = m1["wall_time_s"]
+    out["eval_two_shards_s"] = m2["wall_time_s"]
+    out["one_shard_bit_equal"] = (
+        m1["reward"].tolist() == m0["reward"].tolist()
+        and m1["episode_len"].tolist() == m0["episode_len"].tolist())
+    out["two_shards"] = against_one(m2)
+    if not out["one_shard_bit_equal"]:
+        failed.append("(a) one shard differs from no mesh")
+    c = out["two_shards"]
+    if not c["episode_len_equal"] or c["reward_max_abs_diff_db"] \
+            > MESH_EVAL_DB:
+        failed.append(f"(b) two shards: {c}")
+
+    ranks, ranks_s = spawn_mesh_ranks(dev, ckpt_dir, dirs, tmp)
+    paths["mesh_ranks_eval"] = {k: sum(r["eval_launches"][k] for r in ranks)
+                                for k in ranks[0]["eval_launches"]}
+    paths["mesh_ranks_search"] = {
+        k: sum(r["search_launches"][k] for r in ranks)
+        for k in ranks[0]["search_launches"]}
+    out["ranks"] = [{**against_one(r), "wall_s": r["wall_s"],
+                     "search_s": r["search_s"],
+                     "eval_launches": r["eval_launches"],
+                     "search_launches": r["search_launches"]}
+                    for r in ranks]
+    out["ranks_eval_max_wall_s"] = max(r["wall_s"] for r in ranks)
+    out["ranks_spawn_to_join_s"] = ranks_s
+    out["ranks_printed_equal"] = ranks[0]["printed"] == ranks[1]["printed"]
+    for i, c in enumerate(out["ranks"]):
+        if not c["episode_len_equal"] or c["reward_max_abs_diff_db"] \
+                > MESH_EVAL_DB:
+            failed.append(f"(c) rank {i}: {c}")
+    if not out["ranks_printed_equal"]:
+        failed.append("(c) the ranks printed different aggregates")
+
+    records, seeds = search_records(dirs)
+    search_cfg = MCTSConfig(iterations=MESH_SEARCH_ROUNDS)
+    want = _search(torch, dev, ckpt_dir, search_cfg,
+                   backend="device").run_batch(records, seeds=seeds,
+                                               verbose=False)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sharded = _search(torch, dev, ckpt_dir, search_cfg, backend="device",
+                      mesh=two).run_batch(records, seeds=seeds,
+                                          verbose=False)
+    out["search_two_shards_s"] = time.perf_counter() - t0
+    paths["mesh_search"] = kernels.launch_counts()
+    for name, got in (("search_ranks", ranks[0]["search_rewards"]),
+                      ("search_ranks_1", ranks[1]["search_rewards"]),
+                      ("search_two_shards", sharded)):
+        diff = np.abs(np.asarray(got) - np.asarray(want))
+        out[name] = {"trees": len(got),
+                     "reward_max_abs_diff_db": float(diff.max()),
+                     "trees_exactly_equal": int((diff == 0).sum())}
+        if len(got) != len(want) or diff.max() > SEARCH_DB:
+            failed.append(f"(d) {name}: {out[name]}")
+
+    reqs = serve_requests(SERVE_BATCH)
+    for mode in ("fixed", "policy"):
+        results = []
+        for mesh in (None, two):
+            kernels.reset_launch_counts()
+            svc = _service(torch, dev, ckpt_dir, mode,
+                           batch_size=SERVE_BATCH, mesh=mesh)
+            try:
+                results.append(_served(svc, reqs)[0])
+            finally:
+                svc.close(timeout=600)
+            if svc.stats()["failed"]:
+                failed.append(f"(e) {mode}: {svc.stats()}")
+        paths[f"mesh_serve_{mode}"] = kernels.launch_counts()
+        want_r, got_r = results
+        c = out[f"serve_{mode}"] = {
+            "image_max_abs_diff": float(max(
+                np.abs(a.image - b.image).max()
+                for a, b in zip(want_r, got_r))),
+            "episode_len_equal": [a.episode_len for a in want_r]
+            == [b.episode_len for b in got_r]}
+        if c["image_max_abs_diff"] > 1e-5 or not c["episode_len_equal"]:
+            failed.append(f"(e) {mode}: {c}")
+    out["launches"] = paths
+    out["wall_s"] = time.perf_counter() - t_phase
+    emit(out)
+    if failed:
+        raise AssertionError(f"mesh phase: {failed}")
+    return paths
+
+
 def phase_mcts_bf16(torch, dev, ckpt_dir, dirs, kernels):
     """A device-backend search of 16 trees x 3 rounds with ``--dtype
     bfloat16`` (the bfloat16 K1, K2, K4, K5; proxy scorer), launches
@@ -1789,6 +2034,7 @@ def main() -> int:
         paths["eval_bf16"] = kernels.launch_counts()
         paths["record"] = phase_record(torch, dev, ckpt_dir, kernels)
         paths.update(phase_mcts(torch, dev, ckpt_dir, dirs, kernels))
+        paths.update(phase_mesh(torch, dev, ckpt_dir, dirs, tmp, kernels))
         paths["mcts_bf16"] = phase_mcts_bf16(torch, dev, ckpt_dir, dirs,
                                              kernels)
         phase_unet_modes(torch, dev)
@@ -1813,7 +2059,17 @@ def main() -> int:
                        ("serve_policy", ("conv_block", "kspace",
                                          "dt_decode")),
                        ("serve_fixed", ("conv_block", "kspace")),
-                       ("serve_mcts", search)):
+                       ("serve_mcts", search),
+                       ("mesh_one", ("conv_block", "kspace", "dt_decode")),
+                       ("mesh_eval", ("conv_block", "kspace",
+                                      "dt_decode")),
+                       ("mesh_ranks_eval", ("conv_block", "kspace",
+                                            "dt_decode")),
+                       ("mesh_ranks_search", search),
+                       ("mesh_search", search),
+                       ("mesh_serve_policy", ("conv_block", "kspace",
+                                              "dt_decode")),
+                       ("mesh_serve_fixed", ("conv_block", "kspace"))):
         missing = [k for k in want if paths[path][k] <= 0]
         if missing:
             raise AssertionError(f"the {path} path launched no {missing}")

@@ -29,6 +29,14 @@ float32) and ``--unet_packed`` (the U-Net's execution mode; every mode runs
 the same weights). The port's default mode is ``pallas``, the U-Net's two
 full-resolution blocks as kernel K1 (in bfloat16 under ``--dtype
 bfloat16``); the JAX CLI's default is ``none``.
+``eval``, ``flex`` and ``mcts`` shard their images (or trees) over every
+local GPU, as the JAX verbs shard over every local device; under
+``torchrun`` (``WORLD_SIZE`` > 1) each process takes its own slice of the
+records on its own GPU and every process prints the one-process output:
+
+    torchrun --nproc_per_node 2 -m dt4image_restoration_tpu_torch \
+        --block_size 18 --n_embeds 9 eval --rtg 10
+
 ``train`` reads trajectory jsons and an HDF5 state file (h5py), trains the
 Decision Transformer without the kernels (they have no backward), and
 writes ``model_<epoch>.pt`` in the reference's layout (which ``eval
@@ -39,6 +47,7 @@ writes ``model_<epoch>.pt`` in the reference's layout (which ``eval
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import os
 import sys
@@ -181,7 +190,46 @@ def _default_dirs(args, base_dirs):
     return [os.path.join(root, d) for d in base_dirs]
 
 
+def _eval_mesh(device):
+    """The mesh of the eval verbs: None on one device; otherwise every
+    local device of every process (every visible GPU of a one-process run
+    on ``cuda``, else the process's own device)."""
+    import torch
+
+    from .training.sharding import make_mesh, process_count
+    if device.type == "cuda" and device.index is None \
+            and process_count() == 1:
+        local = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+    else:
+        local = [device]
+    if len(local) * process_count() <= 1:
+        return None
+    return make_mesh(devices=local)
+
+
+@contextlib.contextmanager
+def _process_group(device):
+    """The process's device from ``maybe_initialize_distributed``; the
+    process group it joins (under ``torchrun``) is left at exit."""
+    import torch.distributed as dist
+
+    from .training import maybe_initialize_distributed
+    joined = not dist.is_initialized()
+    dev = maybe_initialize_distributed(device)
+    try:
+        yield dev
+    finally:
+        if joined and dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def _evaluate(args) -> None:
+    with _process_group(args.device) as dev:
+        _evaluate_on(args, dev, _eval_mesh(dev))
+
+
+def _evaluate_on(args, dev, mesh) -> None:
     from .config import ModelConfig
     from .inference import Evaluator
     from .models import fused_forward_takes
@@ -206,14 +254,14 @@ def _evaluate(args) -> None:
     dirs = _existing_dirs(_default_dirs(
         args, EVAL_DIRS_6 if args.mode == "flex" else EVAL_DIRS_9))
     targets = FLEX_RTGS if args.mode == "flex" else [float(args.rtg)]
-    dt = load_dt(cfg, args.checkpoint, device=args.device)
-    denoiser = load_denoiser(args.denoiser_ckpt, device=args.device,
+    dt = load_dt(cfg, args.checkpoint, device=dev)
+    denoiser = load_denoiser(args.denoiser_ckpt, device=dev,
                              dtype=args.dtype, packed=args.unet_packed)
     for rtg in targets:
         evaluator = Evaluator(dt=dt, denoise=denoiser, cfg=cfg,
                               max_timesteps=args.max_timesteps or 30,
                               rtg_target=float(rtg), eval_type=mode,
-                              device=args.device)
+                              device=dev, mesh=mesh)
         if args.mode == "flex":
             print(f"Test for reward increment: {rtg}\n")
             total = evaluator.run(dirs)
@@ -223,11 +271,30 @@ def _evaluate(args) -> None:
 
 
 def _search(args) -> None:
+    with _process_group(args.device) as dev:
+        _search_on(args, dev, None if args.sequential else _eval_mesh(dev))
+
+
+def _value_fn_batched(arniqa, mesh, image_size: int, dtype: str):
+    """The batched ARNIQA scorer, with a copy of ``arniqa`` on each device
+    of ``mesh``: a shard's rollouts are scored on its own device."""
+    from .models.arniqa import make_value_fn_batched
+    from .training.sharding import replicate
+    if mesh is None:
+        return make_value_fn_batched(arniqa, image_size, dtype)
+    copies = dict(zip(mesh.devices, replicate(arniqa, mesh)))
+    scorers = {dev: make_value_fn_batched(copy, image_size, dtype)
+               for dev, copy in copies.items()}
+    return lambda x: scorers[x.device](x)
+
+
+def _search_on(args, dev, mesh) -> None:
     from .config import MCTSConfig, ModelConfig
     from .data import EvaluationDataset
     from .inference import MCTS, BatchedMCTS, DeviceMCTS
-    from .models.arniqa import (make_value_fn, make_value_fn_batched,
-                                proxy_value_fn, proxy_value_fn_batched)
+    from .models.arniqa import (make_value_fn, proxy_value_fn,
+                                proxy_value_fn_batched)
+    from .training.sharding import process_count
     from .utils.loaders import load_arniqa, load_denoiser, load_dt
 
     rtg_target = float(args.rtg)
@@ -236,15 +303,15 @@ def _search(args) -> None:
                       mode="norm", use_pallas=True, dtype=args.dtype)
     print(f"policy forward: per-op (kernels K4, K5); dtype {args.dtype}, "
           f"U-Net mode {args.unet_packed}", file=sys.stderr)
-    dt = load_dt(cfg, args.checkpoint, device=args.device)
-    denoiser = load_denoiser(args.denoiser_ckpt, device=args.device,
+    dt = load_dt(cfg, args.checkpoint, device=dev)
+    denoiser = load_denoiser(args.denoiser_ckpt, device=dev,
                              dtype=args.dtype, packed=args.unet_packed)
     if args.arniqa_ckpt and os.path.exists(args.arniqa_ckpt):
         # The reference's autocast also wraps the ARNIQA scoring.
-        arniqa = load_arniqa(args.arniqa_ckpt, args.device)
+        arniqa = load_arniqa(args.arniqa_ckpt, dev)
         value_fn = make_value_fn(arniqa, cfg.image_size, args.dtype)
-        value_fn_batched = make_value_fn_batched(arniqa, cfg.image_size,
-                                                 args.dtype)
+        value_fn_batched = _value_fn_batched(arniqa, mesh, cfg.image_size,
+                                             args.dtype)
     else:
         print("WARNING: no ARNIQA checkpoint; using the documented no-ref "
               "proxy scorer", file=sys.stderr)
@@ -252,14 +319,14 @@ def _search(args) -> None:
     search_cfg = MCTSConfig(max_timesteps=args.max_timesteps or 30,
                             seed=args.seed)
     common = dict(dt=dt, denoise=denoiser, model_cfg=cfg, cfg=search_cfg,
-                  value_fn=value_fn, device=args.device)
+                  value_fn=value_fn, device=dev)
     if args.sequential:
         mcts = MCTS(**common)
     elif args.tree_backend == "host":
-        mcts = BatchedMCTS(**common)
+        mcts = BatchedMCTS(mesh=mesh, **common)
     else:
         mcts = DeviceMCTS(value_fn_batched=value_fn_batched,
-                          node_dtype=args.node_dtype, **common)
+                          node_dtype=args.node_dtype, mesh=mesh, **common)
     records = []
     for path in _existing_dirs(_default_dirs(args, EVAL_DIRS_9)):
         ds = EvaluationDataset(path, rtg_target=rtg_target, kind="optimal",
@@ -267,10 +334,21 @@ def _search(args) -> None:
         records += [(ds[i], args.seed + i) for i in range(len(ds))]
     b = 1 if args.sequential else args.search_batch
     total = 0.0
-    for off in range(0, len(records), b):
-        chunk = records[off:off + b]
-        total += sum(mcts.run_batch([r for r, _ in chunk],
-                                    seeds=[s for _, s in chunk]))
+    if isinstance(mcts, DeviceMCTS) and mesh is not None \
+            and process_count() > 1:
+        # Each process searches its own slice of the records; every
+        # process prints the one-process lines. The host-tree backend
+        # takes the loop below, whose run_batch refuses several processes.
+        rewards = mcts.run_global_batches(
+            [r for r, _ in records], [s for _, s in records], batch_size=b)
+        for v in rewards:
+            print("MCTS Reward: ", float(v))
+        total = float(sum(rewards))
+    else:
+        for off in range(0, len(records), b):
+            chunk = records[off:off + b]
+            total += sum(mcts.run_batch([r for r, _ in chunk],
+                                        seeds=[s for _, s in chunk]))
     print("Total MCTS reward:", total)
 
 

@@ -58,6 +58,17 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DenoiserConfig:
+    """U-Net plug-in prior."""
+    in_channels: int = 2          # image + sigma noise map
+    out_channels: int = 1
+    base_channels: int = 32       # 32/64/128/256/512 pyramid
+    depth: int = 4
+    dtype: str = "float32"
+    use_pallas: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class EnvConfig:
     """PnP-ADMM environment."""
     max_episode_step: int = 30
@@ -104,6 +115,29 @@ class TrainerConfig:
     log_wandb: bool = False       # gated on the WANDB_API_KEY env var
     watch_every: int = 1000       # param + grad histograms every N steps
                                   # when wandb logs; 0 disables
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh layout (``training/sharding.py:make_mesh``). Inference
+    shards the data axis; a model axis (tensor parallelism) is not ported
+    yet, so ``model_parallel`` must stay 1."""
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """The whole configuration tree."""
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    denoiser: DenoiserConfig = dataclasses.field(
+        default_factory=DenoiserConfig)
+    env: EnvConfig = dataclasses.field(default_factory=EnvConfig)
+    trainer: TrainerConfig = dataclasses.field(default_factory=TrainerConfig)
+    eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
+    mcts: MCTSConfig = dataclasses.field(default_factory=MCTSConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
 
 def tasks_for_experiment(training_type: str

@@ -33,6 +33,10 @@ from ..models.decision_transformer import (DecisionTransformer,
                                            make_dt_embed_apply,
                                            make_fused_dt_apply,
                                            make_state_encode)
+from ..training.sharding import (Mesh, gather_eval_outputs,
+                                 local_output_offset, padded_per_process,
+                                 process_count, process_index, replicate,
+                                 run_sharded, shard_eval_inputs, synchronize)
 from ..utils.device import resolve_device
 
 
@@ -292,7 +296,14 @@ class Evaluator:
     (:func:`..models.decision_transformer.fused_forward_takes`), else the
     per-op forward, which on the card must run kernels K4 and K5: a ``dt``
     built without ``use_pallas`` is then refused with a ``ValueError``.
-    ``dt`` itself supplies the state encoder of the embedding cache."""
+    ``dt`` itself supplies the state encoder of the embedding cache.
+
+    With a ``mesh`` (``training/sharding.py:make_mesh``) the images are
+    padded to this process's share of its data axis and split over the
+    local shards, one rollout each, on a copy of ``dt`` and ``denoise``
+    per local device (a given ``dt_apply`` is used on every shard as it
+    is); on more than one process, ``records`` are this process's slice of
+    the global batch and the outputs are gathered over the processes."""
     dt: DecisionTransformer
     denoise: Callable
     cfg: ModelConfig
@@ -303,59 +314,99 @@ class Evaluator:
     cached_encoder: bool = True   # cache state-encoder outputs per slot
     device: Any = "cuda"
     dt_apply: Optional[Callable] = None
+    mesh: Optional[Mesh] = None   # shard the images over its data axis
     # Metrics of the last ``run``, as ``evaluate_records`` returns them.
     last_metrics: Optional[Dict[str, Any]] = dataclasses.field(
         default=None, init=False)
 
     def __post_init__(self):
-        self.device = resolve_device(self.device)
+        if self.mesh is None:
+            self.device = resolve_device(self.device)
+            self._shards = [(self.device, self.dt, self.denoise)]
+        else:
+            self.device = self.mesh.devices[0]
+            self._shards = list(zip(self.mesh.devices,
+                                    replicate(self.dt, self.mesh),
+                                    replicate(self.denoise, self.mesh)))
         if self.dt_apply is None:
-            check_policy_forward(self.dt, self.cfg, self.device)
+            for dev in dict.fromkeys(d for d, _, _ in self._shards):
+                check_policy_forward(self.dt, self.cfg, dev)
 
-    @torch.no_grad()
-    def evaluate_records(self, records: Sequence[Tuple[Any, Any]]
-                         ) -> Dict[str, Any]:
-        """Evaluate ``((states, rtg, actions, task), mat)`` items in one
-        batched rollout. Returns a metrics dict."""
-        if not records:
-            raise ValueError("evaluate_records needs at least one record "
-                             "(empty evaluation directory?)")
-        dev = self.device
-
-        def stack(i):
-            return torch.from_numpy(np.stack(
-                [np.asarray(r[0][i], np.float32 if i < 3 else np.int64)
-                 .reshape(-1) for r in records])).to(dev)
-
-        policy_x0, rtg0, task = stack(0), stack(1)[:, 0], stack(3)[:, 0]
-        mats = {k: np.concatenate([np.asarray(r[1][k]) for r in records])
-                for k in ("x0", "y0", "mask", "gt")}
-        env_state = reset_from_mat(mats, device=dev)
-        old_reward = compute_reward(env_state)
-
-        dt_apply = self.dt_apply or policy_forward(self.dt, self.cfg)
+    def _rollout(self, dt, denoise, policy_x0, rtg0, task, env_state):
+        """One shard's rollout: (final state, reward (B,),
+        previous reward (B,), episode lengths (B,)), on the device."""
+        dt_apply = self.dt_apply or policy_forward(dt, self.cfg)
         encode = dt_embed_apply = None
         if self.cached_encoder:
-            encode = make_state_encode(self.dt)
+            encode = make_state_encode(dt)
             dt_embed_apply = make_dt_embed_apply(dt_apply)
-
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t0 = _time.perf_counter()
+        old_reward = compute_reward(env_state)
         bufs, _, action_dict, pred_rtg = initial_policy_setup(
             dt_apply, self.cfg, policy_x0, rtg0, task, self.max_timesteps,
             encode=encode)
         final, reward, ep_len, _ = greedy_rollout(
-            dt_apply, self.denoise, self.cfg, env_state, bufs, action_dict,
+            dt_apply, denoise, self.cfg, env_state, bufs, action_dict,
             pred_rtg, self.max_timesteps, encode=encode,
             dt_embed_apply=dt_embed_apply)
-        reward = reward[:, 0].cpu().numpy()
+        return final, reward[:, 0], old_reward[:, 0], ep_len
+
+    @torch.no_grad()
+    def evaluate_records(self, records: Sequence[Tuple[Any, Any]],
+                         return_global: bool = False) -> Dict[str, Any]:
+        """Evaluate ``((states, rtg, actions, task), mat)`` items in one
+        batched rollout (one per local shard with a mesh). Returns a
+        metrics dict.
+
+        On more than one process ``records`` is this process's slice of
+        the global batch (the slices in process order make it), and
+        ``return_global=True`` returns the metrics of the whole gathered
+        batch, every process's padding included; for one process it
+        changes nothing."""
+        if not records:
+            raise ValueError("evaluate_records needs at least one record "
+                             "(empty evaluation directory?)")
+        n = len(records)
+        if self.mesh is not None:
+            # This process's share of the data axis is the padding unit.
+            unit = max(1, self.mesh.shape["data"] // process_count())
+            records = list(records) + [records[-1]] * ((-n) % unit)
+
+        def stack(i):
+            return torch.from_numpy(np.stack(
+                [np.asarray(r[0][i], np.float32 if i < 3 else np.int64)
+                 .reshape(-1) for r in records]))
+
+        inputs = (stack(0), stack(1)[:, 0], stack(3)[:, 0])
+        mats = {k: np.concatenate([np.asarray(r[1][k]) for r in records])
+                for k in ("x0", "y0", "mask", "gt")}
+        shard_inputs = shard_eval_inputs(
+            inputs + (reset_from_mat(mats, device="cpu"),), self.mesh,
+            device=self.device)
+        devices = [dev for dev, _, _ in self._shards]
+        synchronize(devices)
+        t0 = _time.perf_counter()
+        outs = run_sharded(self._rollout, devices,
+                           [shard[1:] + inp for shard, inp in
+                            zip(self._shards, shard_inputs)])
+        synchronize(devices)
         wall = _time.perf_counter() - t0
-        old = old_reward[:, 0].cpu().numpy()
+        reward, old, ep_len = gather_eval_outputs([o[1:] for o in outs],
+                                                  self.mesh)
+        final = outs[0][0] if len(outs) == 1 else CSMRIState(**{
+            f.name: torch.cat([getattr(o[0], f.name).to(devices[0])
+                               for o in outs])
+            for f in dataclasses.fields(CSMRIState)})
+        # Gathered over processes, the outputs are the global batch; this
+        # process's rows start at its offset (equal counts are checked).
+        if not (return_global and self.mesh is not None
+                and process_count() > 1):
+            off = local_output_offset(len(records), self.mesh)
+            reward, old, ep_len = (x[off:off + n]
+                                   for x in (reward, old, ep_len))
         return {
             "reward": reward,
             "increment": reward - old,
-            "episode_len": ep_len.cpu().numpy(),
+            "episode_len": ep_len,
             "wall_time_s": wall,
             "final_state": final,
         }
@@ -363,7 +414,13 @@ class Evaluator:
     def run(self, eval_paths: Sequence[str]) -> float:
         """Evaluate every directory's first ``report_every`` images in one
         batched rollout, print the reference's per-directory aggregates in
-        order, and return the total PSNR increment."""
+        order, and return the total PSNR increment.
+
+        With a mesh over more than one process the global record list is
+        wrap-padded to equal process slices (each a multiple of the
+        process's share of the data axis), each process evaluates its own
+        slice, and the gathered rows are put back in order, so that every
+        process prints the one-process aggregates."""
         groups = []
         for path in eval_paths:
             ds = EvaluationDataset(
@@ -375,7 +432,21 @@ class Evaluator:
                 groups.append((path, [ds[i] for i in range(n)]))
         if not groups:
             return 0.0
-        m = self.evaluate_records([r for _, recs in groups for r in recs])
+        records = [r for _, recs in groups for r in recs]
+        n_proc = process_count()
+        if self.mesh is not None and n_proc > 1:
+            n_global = len(records)
+            per_proc = padded_per_process(n_global, self.mesh)
+            padded = [records[i % n_global]
+                      for i in range(n_proc * per_proc)]
+            pid = process_index()
+            m = self.evaluate_records(
+                padded[pid * per_proc:(pid + 1) * per_proc],
+                return_global=True)
+            for k in ("reward", "increment", "episode_len"):
+                m[k] = m[k][:n_global]
+        else:
+            m = self.evaluate_records(records)
         self.last_metrics = m
         total_increment, off = 0.0, 0
         for _, recs in groups:

@@ -53,6 +53,8 @@ from ..models.decision_transformer import (DecisionTransformer,
                                            make_dt_embed_apply,
                                            make_state_encode)
 from ..ops.metrics import psnr
+from ..training.sharding import (Mesh, process_count, replicate,
+                                 run_sharded)
 from ..utils.device import resolve_device
 from ..utils.profiling import SEARCH_ROUND, annotate
 from .evaluator import (EvalBuffers, greedy_rollout, make_policy_step,
@@ -176,6 +178,13 @@ class MCTS:
     The policy is ``dt``'s per-op forward, which runs kernels K4 and K5
     when ``dt.cfg.use_pallas``; with ``cached_encoder`` the buffers cache
     each observation's state embedding and the forward runs over them.
+
+    With a ``mesh`` (``training/sharding.py:make_mesh``) the trees are
+    padded to this process's share of its data axis (the padded trees are
+    dropped from the outputs) and split over the local shards, each shard's
+    trees on its device with a copy of ``dt`` and ``denoise`` there. The
+    single-node API (:meth:`expand`, :meth:`beam_search`) runs on the
+    first local device.
     """
     dt: DecisionTransformer
     denoise: Callable
@@ -185,9 +194,24 @@ class MCTS:
     cached_encoder: bool = True
     record_trace: bool = False   # keep per-iteration traces in self.traces
     device: Any = "cuda"
+    mesh: Optional[Mesh] = None  # shard the lockstep trees over its data axis
 
     def __post_init__(self):
-        self.device = resolve_device(self.device)
+        if self.mesh is None:
+            self.device = resolve_device(self.device)
+            self._shard_searches = [self]
+        else:
+            self.device = self.mesh.devices[0]
+            # One search per local device, on its copies of the models;
+            # shards on one device share it.
+            per_device = {}
+            for dev, dt, denoise in zip(
+                    self.mesh.devices, replicate(self.dt, self.mesh),
+                    replicate(self.denoise, self.mesh)):
+                if dev not in per_device:
+                    per_device[dev] = dataclasses.replace(
+                        self, dt=dt, denoise=denoise, device=dev, mesh=None)
+            self._shard_searches = [per_device[d] for d in self.mesh.devices]
         self._dt_apply = make_dt_apply(self.dt)
         self._encode = self._dt_embed_apply = None
         if self.cached_encoder:
@@ -196,6 +220,36 @@ class MCTS:
         self._policy_step = make_policy_step(self._dt_apply, self.model_cfg,
                                              self._dt_embed_apply)
         self.traces: Optional[List[List[Dict[str, Any]]]] = None
+
+    def local_padded_count(self, n: int) -> int:
+        """The number of trees after ``n`` local records are padded to this
+        process's share of the mesh's data axis: the layout that callers
+        who put gathered outputs back in global order rely on."""
+        if self.mesh is None:
+            return n
+        unit = max(1, self.mesh.shape["data"] // process_count())
+        return n + (-n) % unit
+
+    def _prepare_batch(self, records: Sequence,
+                       seeds: Optional[Sequence[int]]):
+        """The default per-tree seeds, and the mesh padding (copies of the
+        last record and seed). Returns (records, seeds, trees to keep)."""
+        if not records:
+            raise ValueError("run_batch needs at least one record "
+                             "(empty evaluation directory?)")
+        n_out = len(records)
+        if seeds is None:
+            seeds = [self.cfg.seed + i for i in range(n_out)]
+        pad = self.local_padded_count(n_out) - n_out
+        return (list(records) + [records[-1]] * pad,
+                list(seeds) + [seeds[-1]] * pad, n_out)
+
+    def _shards(self, n: int) -> List[Tuple["MCTS", int, int]]:
+        """(search, first tree, end) of each local shard of ``n`` padded
+        trees, in shard order."""
+        per = n // len(self._shard_searches)
+        return [(m, i * per, (i + 1) * per)
+                for i, m in enumerate(self._shard_searches)]
 
     @torch.no_grad()
     def _seed_bufs(self, policy_x0: torch.Tensor, rtg0: torch.Tensor,
@@ -332,11 +386,30 @@ class MCTS:
         x = final.x.cpu().numpy().reshape(1, *final.x.shape[-2:])
         return float(self.value_fn(x)), x, int(ep_len[0])
 
+    def _shard_round(self, leaves: List[Node], z: np.ndarray):
+        """One shard's fused iteration over its trees' ``leaves`` (z: their
+        standard normals); returns the host copies of (actions, predicted
+        RTGs, priors, final images) and the device (stepped states, child
+        buffers)."""
+        dev, k = self.device, self.cfg.n_children
+        z = torch.from_numpy(z).to(dev)
+        (action_vec, pred_rtg, probs, stepped, child_bufs, finals,
+         _) = self._search_iter(
+            _cat([n.bufs for n in leaves], EvalBuffers),
+            torch.tensor([n.time for n in leaves], device=dev),
+            _cat([n.env_state for n in leaves], CSMRIState),
+            torch.tensor([n.policy_rtg for n in leaves],
+                         dtype=torch.float32, device=dev),
+            z[:, :k], z[:, k:])
+        return tuple(a.cpu().numpy() for a in (
+            action_vec, pred_rtg, probs, finals)) + (stepped, child_bufs)
+
     def _round(self, i: int, roots: List[Node], rngs, rewards_dicts,
                states_dicts) -> None:
-        """Round ``i`` of every tree: select a leaf, expand it, score its
-        rollout and back the score up."""
-        dev, k = self.device, self.cfg.n_children
+        """Round ``i`` of every tree: select a leaf, expand it (one fused
+        iteration per local shard), score its rollout and back the score
+        up."""
+        k = self.cfg.n_children
         leaves = []
         for root in roots:
             root.s_visits += 1
@@ -347,53 +420,49 @@ class MCTS:
             leaves.append(node)
 
         # The loc-independent standard normals, in the order
-        # sample_actions consumes them: k sigma_d draws, then k mu
-        # draws, per tree.
-        z = torch.from_numpy(np.stack(
-            [r.standard_normal(2 * k) for r in rngs])).to(dev)
-        (action_vec, pred_rtg, probs, stepped, child_bufs, finals,
-         _) = self._search_iter(
-            _cat([n.bufs for n in leaves], EvalBuffers),
-            torch.tensor([n.time for n in leaves], device=dev),
-            _cat([n.env_state for n in leaves], CSMRIState),
-            torch.tensor([n.policy_rtg for n in leaves],
-                         dtype=torch.float32, device=dev),
-            z[:, :k], z[:, k:])
-        action_vec, pred_rtg, probs, finals = (
-            a.cpu().numpy() for a in (action_vec, pred_rtg, probs,
-                                      finals))
+        # sample_actions consumes them: k sigma_d draws, then k
+        # mu draws, per tree.
+        z = np.stack([r.standard_normal(2 * k) for r in rngs])
+        shards = self._shards(len(roots))
+        outs = run_sharded(
+            lambda m, lo, hi: m._shard_round(leaves[lo:hi], z[lo:hi]),
+            [m.device for m, _, _ in shards], shards)
 
-        for j, node in enumerate(leaves):
-            node.action = action_vec[j]
-            node.policy_state = _rows(stepped, j * (k + 1),
-                                      j * (k + 1) + 1)
-            shared = _rows(child_bufs, j, j + 1)
-            for c in range(k):
-                lo = j * (k + 1) + c + 1
-                child = Node(time=node.time + 1, prob=float(probs[j, c]),
-                             parent=node, edge=c, index=i,
-                             env_state=_rows(stepped, lo, lo + 1),
-                             policy_state=node.policy_state,
-                             policy_rtg=float(pred_rtg[j]))
-                child.bufs = shared
-                node.children.append(child)
+        for (_, lo, hi), out in zip(shards, outs):
+            action_vec, pred_rtg, probs, finals, stepped, child_bufs = out
+            for j, node in enumerate(leaves[lo:hi]):
+                node.action = action_vec[j]
+                node.policy_state = _rows(stepped, j * (k + 1),
+                                          j * (k + 1) + 1)
+                shared = _rows(child_bufs, j, j + 1)
+                for c in range(k):
+                    row = j * (k + 1) + c + 1
+                    child = Node(time=node.time + 1,
+                                 prob=float(probs[j, c]), parent=node,
+                                 edge=c, index=i,
+                                 env_state=_rows(stepped, row, row + 1),
+                                 policy_state=node.policy_state,
+                                 policy_rtg=float(pred_rtg[j]))
+                    child.bufs = shared
+                    node.children.append(child)
 
-        for j, node in enumerate(leaves):
-            rep = repr(node)
-            if rep in rewards_dicts[j]:
-                reward = rewards_dicts[j][rep]
-            else:
-                x = finals[j:j + 1].reshape(1, *finals.shape[-2:])
-                reward = float(self.value_fn(x))
-                rewards_dicts[j][rep] = reward
-                states_dicts[j][rep] = x
-            node.backprop(reward)
-            if self.record_trace:
-                self.traces[j].append({
-                    "iter": i, "time": node.time, "edge": node.edge,
-                    "index": node.index,
-                    "probs": [c.prob for c in node.children],
-                    "reward": reward})
+            for j, node in enumerate(leaves[lo:hi], start=lo):
+                rep = repr(node)
+                if rep in rewards_dicts[j]:
+                    reward = rewards_dicts[j][rep]
+                else:
+                    x = finals[j - lo:j - lo + 1].reshape(
+                        1, *finals.shape[-2:])
+                    reward = float(self.value_fn(x))
+                    rewards_dicts[j][rep] = reward
+                    states_dicts[j][rep] = x
+                node.backprop(reward)
+                if self.record_trace:
+                    self.traces[j].append({
+                        "iter": i, "time": node.time, "edge": node.edge,
+                        "index": node.index,
+                        "probs": [c.prob for c in node.children],
+                        "reward": reward})
 
     def run(self, record, seed: Optional[int] = None) -> float:
         """Search one image (a batch of one)."""
@@ -407,41 +476,44 @@ class MCTS:
         each, in lockstep; per-tree RNG streams are seeded from ``seeds``
         (default ``cfg.seed + i``), so a tree's search does not depend on
         the batch it runs in beyond float reordering. Prints and returns
-        each tree's final PSNR."""
-        if not records:
-            raise ValueError("run_batch needs at least one record "
-                             "(empty evaluation directory?)")
-        if seeds is None:
-            seeds = [self.cfg.seed + i for i in range(len(records))]
-        dev = self.device
+        each tree's final PSNR. With a mesh it runs in one process only:
+        the tree lives on the host, which syncs every round."""
+        if self.mesh is not None and process_count() > 1:
+            raise ValueError(
+                "the host-tree backend syncs host state every iteration "
+                "and cannot span processes; use DeviceMCTS "
+                "(--tree_backend device) across processes")
+        records, seeds, n_out = self._prepare_batch(records, seeds)
         rngs = [np.random.default_rng(s) for s in seeds]
         self.traces = [[] for _ in records] if self.record_trace else None
 
         roots: List[Node] = []
         rewards_dicts: List[Dict[str, float]] = []
         states_dicts: List[Dict[str, np.ndarray]] = []
-        for (_, rtg0, _, task0), mat in records:
-            env_state = reset_from_mat(mat, device=dev)
-            rtg0 = float(np.asarray(rtg0).reshape(-1)[0])
-            root = Node(time=0, prob=1.0, parent=None, edge=0, index=0,
-                        env_state=env_state, policy_state=env_state,
-                        policy_rtg=rtg0)
-            # The root observation is the reset state's x (the clipped
-            # record x0), not the dataset's policy state.
-            root.bufs = self._seed_bufs(
-                env_state.x_real.reshape(1, -1), torch.tensor([rtg0]),
-                torch.from_numpy(np.asarray(task0).reshape(-1)[:1]))
-            root.s_visits = 1
-            roots.append(root)
-            rewards_dicts.append({})
-            states_dicts.append({})
+        for m, lo, hi in self._shards(len(records)):
+            for (_, rtg0, _, task0), mat in records[lo:hi]:
+                env_state = reset_from_mat(mat, device=m.device)
+                rtg0 = float(np.asarray(rtg0).reshape(-1)[0])
+                root = Node(time=0, prob=1.0, parent=None, edge=0, index=0,
+                            env_state=env_state, policy_state=env_state,
+                            policy_rtg=rtg0)
+                # The root observation is the reset state's x (the clipped
+                # record x0), not the dataset's policy state.
+                root.bufs = m._seed_bufs(
+                    env_state.x_real.reshape(1, -1), torch.tensor([rtg0]),
+                    torch.from_numpy(np.asarray(task0).reshape(-1)[:1]))
+                root.s_visits = 1
+                roots.append(root)
+                rewards_dicts.append({})
+                states_dicts.append({})
 
         for i in range(self.cfg.iterations):
             with annotate(SEARCH_ROUND.format(i)):
                 self._round(i, roots, rngs, rewards_dicts, states_dicts)
 
         out = []
-        for j, root in enumerate(roots):
+        # The padded trees are dropped.
+        for j, root in enumerate(roots[:n_out]):
             best_key = max(rewards_dicts[j], key=rewards_dicts[j].get)
             best_state = torch.from_numpy(states_dicts[j][best_key])
             gt = root.env_state.gt.cpu().reshape(best_state.shape)

@@ -49,6 +49,10 @@ import torch
 
 from ..env.pnp import CSMRIState, reset_from_mat
 from ..ops.metrics import psnr
+from ..training.sharding import (gather_eval_outputs, local_output_offset,
+                                 padded_per_process, process_count,
+                                 process_index, run_sharded,
+                                 shard_eval_inputs, tree_map)
 from ..utils.profiling import SEARCH_ROUND, annotate
 from .evaluator import EvalBuffers, seed_buffers
 from .mcts import MCTS
@@ -266,59 +270,111 @@ class DeviceMCTS(MCTS):
 
     def run_global_batches(self, records: Sequence, seeds: Sequence[int],
                            batch_size: int) -> List[float]:
-        """Search ``records`` in chunks of ``batch_size`` trees and return
-        their rewards in order (one process; the JAX package's
-        multi-process branch is not ported)."""
-        out: List[float] = []
-        for off in range(0, len(records), batch_size):
-            out += self.run_batch(records[off:off + batch_size],
-                                  seeds=seeds[off:off + batch_size],
-                                  verbose=False)
-        return out
+        """Search a global record list in chunks of ``batch_size`` trees and
+        return its rewards in order.
+
+        With a mesh over more than one process, the records are cut into
+        equal contiguous process slices (the tail wrap-padded, so that
+        every process runs the same chunks in step), each process searches
+        its own slice, and the gathered rows are put back in global order:
+        the inverse of :meth:`_prepare_batch`'s padding. Otherwise the
+        chunks run here, one after another."""
+        pairs = list(zip(records, seeds))
+        n_proc = process_count()
+        if self.mesh is None or n_proc <= 1:
+            out: List[float] = []
+            for off in range(0, len(pairs), batch_size):
+                chunk = pairs[off:off + batch_size]
+                out += self.run_batch([r for r, _ in chunk],
+                                      seeds=[s for _, s in chunk],
+                                      verbose=False)
+            return out
+        n_global = len(pairs)
+        if n_global == 0:
+            return []
+        per_proc = padded_per_process(n_global, self.mesh)
+        padded = [pairs[i % n_global] for i in range(n_proc * per_proc)]
+        pid = process_index()
+        local = padded[pid * per_proc:(pid + 1) * per_proc]
+        rewards = np.full(n_proc * per_proc, np.nan)
+        for off in range(0, per_proc, batch_size):
+            chunk = local[off:off + batch_size]
+            vals = self.run_batch([r for r, _ in chunk],
+                                  seeds=[s for _, s in chunk],
+                                  verbose=False, return_global=True)
+            cp = self.local_padded_count(len(chunk))
+            for p in range(n_proc):
+                rewards[p * per_proc + off:p * per_proc + off + len(chunk)] \
+                    = vals[p * cp:p * cp + len(chunk)]
+        return [float(v) for v in rewards[:n_global]]
+
+    def _search_shard(self, root: CSMRIState, rtg0: torch.Tensor,
+                      task: torch.Tensor, z: torch.Tensor):
+        """One shard's search of its trees (``z``: (trees, I, 2K) standard
+        normals), on this search's device. Returns (final PSNR, best final
+        image, its episode length, gave-up lanes, the traces stacked per
+        field over the rounds, or None)."""
+        root_bufs = seed_buffers(self.model_cfg,
+                                 root.x_real.reshape(root.batch, -1), rtg0,
+                                 task, self.cfg.max_timesteps, self._encode)
+        final_reward, best_final, best_ep, bailed, traces = \
+            self._search_all(root_bufs, root, rtg0, z.transpose(0, 1))
+        traces = tuple(torch.stack(x) for x in zip(*traces)) \
+            if traces else None
+        return final_reward, best_final, best_ep, bailed, traces
 
     @torch.no_grad()
     def run_batch(self, records: Sequence, seeds: Optional[Sequence[int]]
-                  = None, detailed: bool = False, verbose: bool = True
-                  ) -> list:
+                  = None, detailed: bool = False, verbose: bool = True,
+                  return_global: bool = False) -> list:
         """Search ``((states, rtg, actions, task), mat)`` records, one tree
         each, in lockstep, with per-tree RNG streams seeded from ``seeds``
         (default ``cfg.seed + i``) as in the host search. Returns each
         tree's final PSNR (printed unless ``verbose=False``), or with
         ``detailed=True`` dicts ``{"reward", "image" (H, W),
         "episode_len"}`` of the best-scored rollout. Fetches to the host
-        only what it returns, and the traces when ``record_trace``."""
-        if not records:
-            raise ValueError("run_batch needs at least one record "
-                             "(empty evaluation directory?)")
-        if seeds is None:
-            seeds = [self.cfg.seed + i for i in range(len(records))]
+        only what it returns, and the traces when ``record_trace``.
+
+        With a mesh the trees are padded to this process's share of its
+        data axis and split over the local shards. On more than one
+        process ``records`` is this process's slice of the global batch,
+        and ``return_global=True`` returns the rewards of the whole
+        gathered batch in process order, every process's padding
+        included; for one process it changes nothing."""
         self.traces = None
-        dev, n = self.device, len(records)
+        records, seeds, n_out = self._prepare_batch(records, seeds)
+        n = len(records)
         I, K = self.cfg.iterations, self.cfg.n_children
         # The per-tree streams in the host search's order: K sigma_d
         # draws, then K mu draws, per round; drawn once, moved once.
-        z_all = torch.from_numpy(np.stack(
-            [np.random.default_rng(s).standard_normal((I, 2 * K))
-             for s in seeds], axis=1)).to(dev)
+        z = np.stack([np.random.default_rng(s).standard_normal((I, 2 * K))
+                      for s in seeds])
         mats = {k: np.concatenate([np.asarray(r[1][k]) for r in records])
                 for k in ("x0", "y0", "mask", "gt")}
-        root = reset_from_mat(mats, device=dev)
         rtg0 = torch.tensor([float(np.asarray(r[0][1]).reshape(-1)[0])
-                             for r in records], dtype=torch.float32,
-                            device=dev)
+                             for r in records], dtype=torch.float32)
         task = torch.as_tensor(np.stack(
-            [np.asarray(r[0][3]).reshape(-1)[0] for r in records]),
-            device=dev)
+            [np.asarray(r[0][3]).reshape(-1)[0] for r in records]))
         # The root observation is the reset state's x (the clipped record
         # x0), as in the host search.
-        root_bufs = seed_buffers(self.model_cfg, root.x_real.reshape(n, -1),
-                                 rtg0, task, self.cfg.max_timesteps,
-                                 self._encode)
+        inputs = shard_eval_inputs(
+            (reset_from_mat(mats, device="cpu"), rtg0, task, z), self.mesh,
+            device=self.device)
+        searches = self._shard_searches
+        outs = run_sharded(lambda m, *a: m._search_shard(*a),
+                           [m.device for m in searches],
+                           [(m,) + a for m, a in zip(searches, inputs)])
+        mesh = self.mesh
 
-        final_reward, best_final, best_ep, bailed, traces = \
-            self._search_all(root_bufs, root, rtg0, z_all)
-        rewards = final_reward.cpu().tolist()
-        bailed = bailed.cpu().numpy()
+        def local(pick, axis=0):
+            """``pick`` of this process's shards' outputs, on the host,
+            joined: its rows, the padding dropped."""
+            out = gather_eval_outputs([pick(o) for o in outs], axis=axis)
+            index = (slice(None),) * axis + (slice(0, n_out),)
+            return tree_map(lambda x: x[index], out)
+
+        rewards, bailed = local(lambda o: (o[0], o[3]))
+        rewards = rewards.tolist()
         if bailed.any():
             warnings.warn(
                 f"DeviceMCTS selection gave up floor recovery on trees "
@@ -326,8 +382,8 @@ class DeviceMCTS(MCTS):
                 f"explore differently here (value scale likely "
                 f"pathological)", RuntimeWarning, stacklevel=3)
         if self.record_trace:
-            leaf, t_leaf, probs, r = (torch.stack(x).cpu().numpy()
-                                      for x in zip(*traces))
+            # (iterations, trees, ...) per field.
+            leaf, t_leaf, probs, r = local(lambda o: o[4], 1)
             self.traces = [[{
                 "iter": i, "time": int(t_leaf[i, j]),
                 "edge": (int(leaf[i, j]) - 1) % K if leaf[i, j] > 0 else 0,
@@ -335,13 +391,18 @@ class DeviceMCTS(MCTS):
                 else 0,
                 "probs": [float(p) for p in probs[i, j]],
                 "reward": float(r[i, j])} for i in range(I)]
-                for j in range(n)]
+                for j in range(n_out)]
+        if return_global and mesh is not None and process_count() > 1:
+            # Every process's rewards, its padding included, in process
+            # order (equal counts are checked).
+            local_output_offset(n, mesh)
+            return [float(v) for v in gather_eval_outputs(
+                [o[0] for o in outs], mesh)]
         if verbose:
             for v in rewards:
                 print("MCTS Reward: ", v)
         if not detailed:
             return rewards
-        images = best_final[:, 0].cpu().numpy()
-        eps = best_ep.cpu().numpy()
+        images, eps = local(lambda o: (o[1][:, 0], o[2]))
         return [{"reward": rewards[j], "image": images[j],
-                 "episode_len": int(eps[j])} for j in range(n)]
+                 "episode_len": int(eps[j])} for j in range(n_out)]

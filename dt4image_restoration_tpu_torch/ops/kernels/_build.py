@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence
@@ -32,6 +33,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _libs: Dict[tuple, ctypes.CDLL] = {}
+# Host threads of one process (one per device of a mesh) may load and
+# launch at once: loads, and the builds they start, are serialised (a
+# build's temporary files are named by the process), and so are the
+# wrappers' launch counts.
+_BUILD_LOCK = threading.Lock()
+LAUNCH_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -105,9 +112,12 @@ def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     key = (name, tuple(defines))
     lib = _libs.get(key)
     if lib is None:
-        build([key])
-        lib = ctypes.CDLL(str(library_path(name, defines)))
-        _libs[key] = lib
+        with _BUILD_LOCK:
+            lib = _libs.get(key)
+            if lib is None:
+                build([key])
+                lib = ctypes.CDLL(str(library_path(name, defines)))
+                _libs[key] = lib
     return lib
 
 

@@ -106,5 +106,6 @@ def fused_causal_attention(q: torch.Tensor, k: torch.Tensor,
                     out.data_ptr(), b, h, t, d, sb, sh, st,
                     _build.stream_handle(index))
     _build.check(rc, "fused_causal_attention")
-    launches += 1
+    with _build.LAUNCH_LOCK:
+        launches += 1
     return out.transpose(1, 2)

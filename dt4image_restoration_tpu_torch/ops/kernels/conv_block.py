@@ -216,7 +216,8 @@ def conv_block(x: torch.Tensor, packed: PackedConvBlock,
                 w, packed.features, packed.layers, float(negative_slope),
                 _build.stream_handle(x.device))
     _build.check(rc, "conv_block")
-    launches += 1
+    with _build.LAUNCH_LOCK:
+        launches += 1
     return out
 
 

@@ -306,5 +306,6 @@ def run_build(x: torch.Tensor, packed, negative_slope: float = 0.2,
                 packed.features, grid, float(negative_slope),
                 _build.stream_handle(index))
     _build.check(rc, "conv_block_bf16")
-    launches += 1
+    with _build.LAUNCH_LOCK:
+        launches += 1
     return out

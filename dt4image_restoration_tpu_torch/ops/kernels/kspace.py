@@ -74,5 +74,6 @@ def kspace_consistency_kernel(z: torch.Tensor, y0: torch.Tensor,
                 out.data_ptr(), n, n // z.shape[0],
                 _build.stream_handle(z.device))
     _build.check(rc, "kspace_consistency")
-    launches += 1
+    with _build.LAUNCH_LOCK:
+        launches += 1
     return out

@@ -89,5 +89,6 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     out.data_ptr(), rows, e, eps,
                     _build.stream_handle(index))
     _build.check(rc, "layernorm")
-    launches += 1
+    with _build.LAUNCH_LOCK:
+        launches += 1
     return out

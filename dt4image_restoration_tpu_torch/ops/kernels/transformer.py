@@ -231,5 +231,6 @@ def fused_dt_decode(tokens: torch.Tensor, packed: Mapping[str, torch.Tensor],
         raise RuntimeError(f"dt_decode: a cluster of {CLUSTER} blocks with "
                            "their shared memory does not fit on this card")
     _build.check(rc, "dt_decode")
-    launches += 1
+    with _build.LAUNCH_LOCK:
+        launches += 1
     return out

@@ -39,6 +39,8 @@ from .inference.evaluator import (check_policy_forward, greedy_rollout,
 from .models.decision_transformer import (DecisionTransformer,
                                           make_dt_embed_apply,
                                           make_state_encode)
+from .training.sharding import (Mesh, process_count, replicate,
+                                run_sharded, shard_eval_inputs)
 from .utils.device import resolve_device
 
 
@@ -119,6 +121,14 @@ class RestorationService:
         is taken before a batch is launched and returned once it is
         settled). Policy and fixed modes only.
       device: 'cuda' (default) or 'cpu'.
+      mesh: optional ``training/sharding.py:make_mesh`` mesh: each batch is
+        split over its local shards (``batch_size`` must be a multiple of
+        its data axis), one rollout per shard on a copy of the models on
+        the shard's device, and the results are joined; mcts mode passes
+        it to the search. One process only: the queue's asynchronous
+        batches cannot be coordinated across processes, so run one
+        service per process instead. ``device`` is then the mesh's first
+        device.
     """
 
     def __init__(self, denoise: Callable,
@@ -134,7 +144,8 @@ class RestorationService:
                  fill_window_frac: float = 0.1,
                  fill_window_max_s: float = 0.5,
                  max_queue_depth: Optional[int] = None,
-                 device: Any = "cuda") -> None:
+                 device: Any = "cuda", mesh: Optional[Mesh] = None
+                 ) -> None:
         if mode not in ("policy", "mcts", "fixed"):
             raise ValueError(
                 f"unknown serving mode {mode!r}; expected one of "
@@ -154,7 +165,20 @@ class RestorationService:
         if max_queue_depth is not None and max_queue_depth < 1:
             raise ValueError(f"max_queue_depth must be >= 1, got "
                              f"{max_queue_depth}")
-        self.device = resolve_device(device)
+        if mesh is not None:
+            if process_count() > 1:
+                raise ValueError(
+                    "RestorationService mesh sharding is single-process "
+                    "only (async queue dispatch cannot be coordinated "
+                    "across hosts); run one service per host")
+            n_data = mesh.shape["data"]
+            if batch_size % n_data:
+                raise ValueError(
+                    f"batch_size {batch_size} must be a multiple of the "
+                    f"mesh data axis ({n_data})")
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None \
+            else mesh.devices[0]
         self.mode = mode
         self.batch_size = batch_size
         self.max_timesteps = max_timesteps
@@ -162,7 +186,6 @@ class RestorationService:
         self.fill_window_frac = fill_window_frac
         self.fill_window_max_s = fill_window_max_s
         self.max_queue_depth = max_queue_depth
-        self._denoise = denoise
         self._mu, self._sigma_d = mu, sigma_d
         self._turn_ema_s = 0.0  # running mean of batch turns; 0: none yet
         self._queue: "queue.Queue" = queue.Queue()
@@ -172,13 +195,8 @@ class RestorationService:
         # resolve.
         self._submit_lock = threading.Lock()
 
-        if mode == "policy":
-            self._cfg = dt.cfg
-            check_policy_forward(dt, dt.cfg, self.device)
-            self._dt_apply = policy_forward(dt, dt.cfg)
-            self._encode = make_state_encode(dt)
-            self._dt_embed_apply = make_dt_embed_apply(self._dt_apply)
-        elif mode == "mcts":
+        devices = [self.device] if mesh is None else list(mesh.devices)
+        if mode == "mcts":
             if self.device.type == "cuda" and not dt.cfg.use_pallas:
                 raise ValueError(
                     "the search runs the per-op forward, whose kernels K4 "
@@ -191,7 +209,27 @@ class RestorationService:
                 dt=dt, denoise=denoise, model_cfg=dt.cfg,
                 cfg=search_cfg or MCTSConfig(max_timesteps=max_timesteps),
                 value_fn=proxy_value_fn, value_fn_batched=value_fn_batched,
-                node_dtype=node_dtype, device=self.device)
+                node_dtype=node_dtype, device=self.device, mesh=mesh)
+        else:
+            # Per local shard: (device, denoiser, and in policy mode the
+            # policy forward, the state encoder and the forward over cached
+            # embeddings); shards on one device share its models.
+            denoisers = [denoise] if mesh is None \
+                else replicate(denoise, mesh)
+            policies = [(None, None, None)] * len(devices)
+            if mode == "policy":
+                self._cfg = dt.cfg
+                forwards = {}
+                for dev, dt_i in zip(devices, [dt] if mesh is None
+                                     else replicate(dt, mesh)):
+                    if dev not in forwards:
+                        check_policy_forward(dt_i, dt.cfg, dev)
+                        dt_apply = policy_forward(dt_i, dt.cfg)
+                        forwards[dev] = (dt_apply, make_state_encode(dt_i),
+                                         make_dt_embed_apply(dt_apply))
+                policies = [forwards[dev] for dev in devices]
+            self._shards = [(dev, den) + policy for dev, den, policy
+                            in zip(devices, denoisers, policies)]
 
         self._stats_lock = threading.Lock()
         self._stats = {"submitted": 0, "completed": 0, "failed": 0,
@@ -199,8 +237,9 @@ class RestorationService:
                        "padded_slots": 0,
                        "latency_sum_ms": 0.0, "latency_max_ms": 0.0}
 
-        self._copy_stream = (torch.cuda.Stream(self.device)
-                             if self.device.type == "cuda" else None)
+        self._copy_streams = {dev: torch.cuda.Stream(dev)
+                              for dev in dict.fromkeys(devices)
+                              if dev.type == "cuda"}
         self._resolve_q: Optional["queue.Queue"] = None
         self._resolver: Optional[threading.Thread] = None
         self._inflight: Optional[threading.Semaphore] = None
@@ -430,62 +469,87 @@ class RestorationService:
             episode_len=res["episode_len"])
             for i, res in enumerate(results)]
 
-    def _dispatch_batch(self, requests):
-        """Launch one policy or fixed batch and the copy of its live rows
-        to the host; returns the handle :meth:`_finalize_batch` waits on."""
-        n, padded, has_gt, mats = self._prepare_mats(requests)
-        dev = self.device
-        env_state = reset_from_mat(mats, device=dev)
+    def _launch(self, denoise, dt_apply, encode, dt_embed_apply, env_state,
+                policy_x0=None, rtg0=None, task=None):
+        """One shard's policy or fixed rollout: (final images (B, H, W),
+        reward (B,), episode lengths (B,)), on its device."""
         if self.mode == "policy":
-            # The policy's first observation is the UNCLIPPED x0, as in the
-            # eval dataset (the clip applies to the env's record only).
-            policy_x0 = torch.from_numpy(np.stack(
-                [np.asarray(r.mat["x0"], np.float32)[..., 0].reshape(-1)
-                 for r in padded])).to(dev)
-            rtg0 = torch.tensor([float(r.rtg) for r in padded],
-                                dtype=torch.float32, device=dev)
-            task = torch.tensor([int(r.task) for r in padded], device=dev)
             bufs, _, action_dict, pred_rtg = initial_policy_setup(
-                self._dt_apply, self._cfg, policy_x0, rtg0, task,
-                self.max_timesteps, encode=self._encode)
+                dt_apply, self._cfg, policy_x0, rtg0, task,
+                self.max_timesteps, encode=encode)
             final, reward, ep_len, _ = greedy_rollout(
-                self._dt_apply, self._denoise, self._cfg, env_state, bufs,
-                action_dict, pred_rtg, self.max_timesteps,
-                encode=self._encode, dt_embed_apply=self._dt_embed_apply)
+                dt_apply, denoise, self._cfg, env_state, bufs, action_dict,
+                pred_rtg, self.max_timesteps, encode=encode,
+                dt_embed_apply=dt_embed_apply)
         else:
-            final, _ = fixed_param_rollout(self._denoise, env_state,
-                                           self._mu, self._sigma_d,
-                                           self.max_timesteps)
+            final, _ = fixed_param_rollout(denoise, env_state, self._mu,
+                                           self._sigma_d, self.max_timesteps)
             reward = compute_reward(final)
             ep_len = torch.full((env_state.batch,), self.max_timesteps,
-                                dtype=torch.long, device=dev)
-        # Only the live rows go to the host.
-        live = (final.x[:n, 0], reward[:n, 0], ep_len[:n])
-        if self._copy_stream is None:
-            return live, None, has_gt
+                                dtype=torch.long, device=final.x.device)
+        return final.x[:, 0], reward[:, 0], ep_len
+
+    def _copy_live(self, dev, live):
+        """Launch the copy of one shard's live rows to pinned host memory
+        on ``dev``'s side stream; returns (host tensors, the copy's event),
+        the event None off the card."""
+        stream = self._copy_streams.get(dev)
+        if stream is None:
+            return live, None
         done = torch.cuda.Event()
-        done.record()
-        self._copy_stream.wait_event(done)
+        done.record(torch.cuda.current_stream(dev))
+        stream.wait_event(done)
         host = []
-        with torch.cuda.stream(self._copy_stream):
+        with torch.cuda.stream(stream):
             for t in live:
                 # The copy stream reads these; keep their memory from the
                 # next batch until it has.
-                t.record_stream(self._copy_stream)
+                t.record_stream(stream)
                 h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                 h.copy_(t, non_blocking=True)
                 host.append(h)
             copied = torch.cuda.Event()
             copied.record()
-        return tuple(host), copied, has_gt
+        return tuple(host), copied
+
+    def _dispatch_batch(self, requests):
+        """Launch one policy or fixed batch (split over the mesh's local
+        shards, if any) and the copy of its live rows to the host; returns
+        the handle :meth:`_finalize_batch` waits on."""
+        n, padded, has_gt, mats = self._prepare_mats(requests)
+        policy = ()
+        if self.mode == "policy":
+            # The policy's first observation is the UNCLIPPED x0, as in the
+            # eval dataset (the clip applies to the env's record only).
+            policy = (torch.from_numpy(np.stack(
+                [np.asarray(r.mat["x0"], np.float32)[..., 0].reshape(-1)
+                 for r in padded])),
+                torch.tensor([float(r.rtg) for r in padded],
+                             dtype=torch.float32),
+                torch.tensor([int(r.task) for r in padded]))
+        inputs = shard_eval_inputs(
+            (reset_from_mat(mats, device="cpu"),) + policy, self.mesh,
+            device=self.device)
+        devices = [shard[0] for shard in self._shards]
+        outs = run_sharded(self._launch, devices,
+                           [shard[1:] + inp for shard, inp in
+                            zip(self._shards, inputs)])
+        # Only the live rows go to the host.
+        per = self.batch_size // len(devices)
+        copies = [self._copy_live(dev, tuple(
+            t[:max(0, min(per, n - i * per))] for t in out))
+            for i, (dev, out) in enumerate(zip(devices, outs))]
+        return copies, has_gt
 
     def _finalize_batch(self, handle) -> list:
-        """Wait for one launched batch's copy and build its results."""
-        (images, reward, ep_len), copied, has_gt = handle
-        if copied is not None:
-            copied.synchronize()
-        images, reward, ep_len = (t.numpy() for t in (images, reward,
-                                                      ep_len))
+        """Wait for one launched batch's copies and build its results."""
+        copies, has_gt = handle
+        for _, copied in copies:
+            if copied is not None:
+                copied.synchronize()
+        images, reward, ep_len = (
+            np.concatenate([host[k].numpy() for host, _ in copies])
+            for k in range(3))
         return [RestorationResult(
             image=np.clip(images[i], 0.0, 1.0),
             psnr_db=float(reward[i]) if has_gt[i] else None,

@@ -11,21 +11,42 @@
     values, so the update follows the masked mean over the global batch,
     as the JAX package's ``psum`` of weighted shards does. Averaging each
     rank's own masked mean (``DistributedDataParallel``) differs whenever
-    ranks hold different numbers of padded steps.
+    ranks hold different numbers of padded steps;
+  * :class:`Mesh`, :func:`make_mesh` - the devices of multi-device
+    inference: this process's local devices along a data axis, times the
+    processes;
+  * :func:`sync_processes`, :func:`shard_eval_inputs`,
+    :func:`gather_eval_outputs`, :func:`local_output_offset`,
+    :func:`padded_per_process` - the inference helpers: inputs split over
+    the local shards, outputs joined on the host and, across processes,
+    gathered over a Gloo group of their own (:func:`host_group`);
+  * :func:`replicate`, :func:`run_sharded` - one copy of a model per local
+    device, and one call per local shard, a host thread per distinct
+    device.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import copy
+import dataclasses
+import datetime
+import itertools
 import os
 import queue as queue_mod
 import threading
-from typing import Callable, Dict, Iterable, Iterator
+from typing import (Any, Callable, Dict, Iterable, Iterator, List,
+                    Optional, Sequence, Tuple)
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils.device import resolve_device
 from .trainer import TrainState, loss_fn
+
+# Seconds a process waits at a barrier of the inference helpers.
+BARRIER_TIMEOUT_S = 600
 
 
 def process_index() -> int:
@@ -113,19 +134,38 @@ def shard_batch(batch: Dict[str, np.ndarray], device
     return out
 
 
-def prefetch_shard(iterator: Iterator, shard_fn: Callable) -> Iterator:
-    """Yield ``shard_fn(batch)`` for each batch, with the next batch's
-    ``shard_fn`` already issued when one is handed out: its host-to-device
-    copy is queued before the current step runs."""
-    current = next(iterator, None)
-    if current is None:
-        return
-    current = shard_fn(current)
-    for batch in iterator:
-        upcoming = shard_fn(batch)
-        yield current
-        current = upcoming
-    yield current
+def prefetch_shard(iterator: Iterator, shard_fn: Callable, size: int = 2
+                   ) -> Iterator:
+    """Yield ``shard_fn(batch)`` for each batch, with ``shard_fn`` issued
+    ``size - 1`` batches ahead of the one handed out (the next batch's
+    host-to-device copy is queued before the current step runs, at the
+    default of 2)."""
+    if size < 1:
+        raise ValueError(f"size must be >= 1, got {size}")
+    iterator = iter(iterator)
+    ahead: collections.deque = collections.deque()
+
+    def enqueue(n: int) -> None:
+        for _ in range(n):
+            batch = next(iterator, None)
+            if batch is None:
+                return
+            ahead.append(shard_fn(batch))
+
+    enqueue(size)
+    while ahead:
+        yield ahead.popleft()
+        enqueue(1)
+
+
+def prefetch_to_device(iterator: Iterator, mesh: "Mesh", size: int = 2
+                       ) -> Iterator:
+    """:func:`prefetch_shard` onto ``mesh``: each host batch (a dict of
+    arrays, leading axis the batch) is split over the mesh's local shards
+    and yielded as one dict of tensors per shard, on the shard's device."""
+    return prefetch_shard(
+        iterator, lambda b: [shard_batch(part, dev) for part, dev in zip(
+            split_local(b, mesh), mesh.devices)], size)
 
 
 def valid_count(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -189,3 +229,311 @@ def make_train_step(dtype: str = "float32") -> Callable:
         state.step += 1
         return loss.detach()
     return step
+
+
+# -- multi-device and multi-process inference ------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """The devices of multi-device inference: this process's local devices
+    along a data axis, repeated over the processes. ``shape`` is the
+    global one, as a JAX mesh's is: ``{"data": len(devices) *
+    process_count(), "model": 1}``, so ``shape["data"] //
+    process_count()`` is each process's share.
+
+    ``devices`` may name one device more than once (``["cpu", "cpu"]``,
+    ``[cuda:0, cuda:0]``): each entry is a shard of its own, and shards on
+    one device run one after another. That is how a CPU, or a machine with
+    one card, holds a mesh of two shards."""
+    devices: Tuple[torch.device, ...]
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": len(self.devices) * process_count(), "model": 1}
+
+    @property
+    def distinct_devices(self) -> List[torch.device]:
+        """The local devices, each once, in order of first appearance."""
+        return list(dict.fromkeys(self.devices))
+
+
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A :class:`Mesh` over ``devices``, this process's local devices
+    (default: every visible GPU when the world is one process, else the
+    process's own ``cuda:LOCAL_RANK``). ``n_data``, if given, must equal
+    the local devices times the processes. Inference shards the data axis
+    only: ``n_model`` is the JAX signature's, and any value but 1 raises
+    ``NotImplementedError``."""
+    if n_model != 1:
+        raise NotImplementedError(
+            "the port shards inference over the data axis only; tensor "
+            "parallelism over a model axis (param_partition_spec, "
+            "shard_params, make_shard_map_train_step) is queued in "
+            "ROADMAP.md section 1, 'Training over the model axis'")
+    n_proc = process_count()
+    if devices is None:
+        if n_proc > 1:
+            devices = [torch.device(
+                "cuda", int(os.environ.get("LOCAL_RANK", "0")))]
+        else:
+            resolve_device("cuda")
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+    devices = tuple(_indexed(resolve_device(d)) for d in devices)
+    if not devices:
+        raise ValueError("make_mesh needs at least one device")
+    if n_data is not None and n_data != len(devices) * n_proc:
+        raise ValueError(
+            f"n_data = {n_data} must equal the local devices times the "
+            f"processes, {len(devices)} * {n_proc}")
+    return Mesh(devices=devices)
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``cuda`` as the current CUDA device's index, as tensors report it."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+_HOST_GROUP: Dict[str, Any] = {}
+_SYNC_COUNTER = [0]
+
+
+def host_group():
+    """The Gloo group that the inference helpers gather and wait over, made
+    once per process group (``dist.new_group`` is collective: every rank
+    reaches it at the same call of a helper). Gloo, whatever the default
+    backend: the outputs are a few values a slice, gathered to the host,
+    and two ranks may share one GPU, which NCCL refuses."""
+    world = dist.group.WORLD
+    if _HOST_GROUP.get("world") is not world:
+        _HOST_GROUP.update(world=world, group=dist.new_group(backend="gloo"))
+    return _HOST_GROUP["group"]
+
+
+def sync_processes(tag: str = "eval") -> None:
+    """Align every process at a barrier before a multi-process inference
+    dispatch; a no-op for one process. Barriers are numbered by a
+    process-local counter, so a rank that raises between two matched
+    dispatches must exit, not catch and go on: the sequences then differ
+    and every later barrier times out. The error names the barrier and
+    this cause."""
+    if process_count() <= 1:
+        return
+    _SYNC_COUNTER[0] += 1
+    name = f"dt4ir_{tag}_{_SYNC_COUNTER[0]}"
+    try:
+        dist.monitored_barrier(
+            group=host_group(),
+            timeout=datetime.timedelta(seconds=BARRIER_TIMEOUT_S))
+    except RuntimeError as e:
+        raise RuntimeError(
+            f"multi-process barrier '{name}' failed: {e}. A barrier "
+            f"timeout here usually means another process raised or "
+            f"skipped a dispatch and the per-process barrier sequence "
+            f"desynced; a rank that fails mid-sequence must exit, not "
+            f"catch and continue.") from e
+
+
+def tree_map(fn: Callable, tree):
+    """``fn`` on every tensor and numpy leaf of ``tree`` (tuples, lists,
+    dicts and dataclasses of them; None and other values pass through)."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree) if f.init})
+    return tree
+
+
+def tree_leaves(tree) -> list:
+    leaves: list = []
+    tree_map(leaves.append, tree)
+    return leaves
+
+
+def split_local(tree, mesh: Mesh, axis: int = 0) -> list:
+    """``tree`` split along ``axis`` into one tree per local shard of
+    ``mesh``, in shard order; the axis must divide evenly."""
+    n = len(mesh.devices)
+    sizes = {x.shape[axis] for x in tree_leaves(tree)}
+    if any(s % n for s in sizes):
+        raise ValueError(f"axis {axis} of sizes {sorted(sizes)} does not "
+                         f"split into {n} local shards")
+
+    def part(i):
+        def take(x):
+            per = x.shape[axis] // n
+            index = (slice(None),) * axis + (slice(i * per, (i + 1) * per),)
+            return x[index]
+        return tree_map(take, tree)
+    return [part(i) for i in range(n)]
+
+
+def shard_eval_inputs(tree, mesh: Optional[Mesh], axis: int = 0,
+                      device=None) -> list:
+    """Split a tree of batched inference inputs (this process's slice of
+    the global batch) along ``axis`` over the local shards of ``mesh``, and
+    move each part to its shard's device as tensors. Returns one tree per
+    local shard. The entry of every multi-process inference dispatch: it
+    aligns the processes first (:func:`sync_processes`). With
+    ``mesh=None`` the whole tree is the one shard, on ``device``, and no
+    process is waited for."""
+    if mesh is None:
+        parts, devices = [tree], [resolve_device(device)]
+    else:
+        sync_processes("shard_eval")
+        parts, devices = split_local(tree, mesh, axis), mesh.devices
+
+    def put(dev):
+        def move(x):
+            t = torch.as_tensor(x)
+            return t.to(dev) if t.device != dev else t
+        return move
+    return [tree_map(put(dev), part) for part, dev in zip(parts, devices)]
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def gather_eval_outputs(shards: Sequence, mesh: Optional[Mesh] = None,
+                        axis: int = 0):
+    """Inference outputs as host numpy arrays. ``shards`` holds one tree
+    per local shard (one with ``mesh=None``), joined along ``axis`` in
+    shard order. With a mesh and several processes, every process's join
+    is then gathered in process order, so that each sees the global batch
+    (as JAX's ``process_allgather(tiled=True)``). With ``mesh=None`` no
+    collective is issued, even in a multi-process job: a per-process
+    serving queue holds process-local outputs."""
+    local = _join([tree_map(_host, t) for t in shards], axis)
+    if mesh is None or process_count() <= 1:
+        return local
+    everyone: list = [None] * process_count()
+    dist.all_gather_object(everyone, local, group=host_group())
+    return _join(everyone, axis)
+
+
+def _join(trees: Sequence, axis: int):
+    """Trees of one structure joined leaf by leaf along ``axis``."""
+    if len(trees) == 1:
+        return trees[0]
+    return _zip_map(lambda *xs: np.concatenate(xs, axis), trees)
+
+
+def _zip_map(fn: Callable, trees: Sequence):
+    """``fn`` over the corresponding leaves of trees of one structure."""
+    leaves = [tree_leaves(t) for t in trees]
+    it = iter([fn(*xs) for xs in zip(*leaves)])
+    return tree_map(lambda _: next(it), trees[0])
+
+
+def local_output_offset(n_local_padded: int, mesh: Optional[Mesh] = None
+                        ) -> int:
+    """This process's row offset in the gathered global outputs:
+    ``process_index() * n_local_padded``. That holds only when every
+    process submitted the same padded count, which this checks with a
+    gather: a mismatch raises instead of attributing another process's
+    rows. 0 for one process or ``mesh=None``."""
+    if mesh is None or process_count() <= 1:
+        return 0
+    counts: list = [None] * process_count()
+    dist.all_gather_object(counts, int(n_local_padded), group=host_group())
+    if any(c != n_local_padded for c in counts):
+        raise ValueError(
+            f"multi-host inference needs equal per-process record counts; "
+            f"got {counts} (pad every process to the same length)")
+    return process_index() * n_local_padded
+
+
+def padded_per_process(n_global: int, mesh: Mesh) -> int:
+    """The length of each process's slice when a global record list is cut
+    into equal contiguous process slices: ceil(n_global / processes),
+    rounded up to this process's share of the data axis. Callers wrap-pad
+    the global list to ``processes * padded_per_process``."""
+    n_proc = process_count()
+    per = -(-n_global // n_proc)
+    unit = max(1, mesh.shape["data"] // n_proc)
+    return per + (-per) % unit
+
+
+def _module_device(module: torch.nn.Module) -> Optional[torch.device]:
+    for t in itertools.chain(module.parameters(), module.buffers()):
+        return t.device
+    return None
+
+
+def replicate(module, mesh: Mesh) -> list:
+    """One ``module`` per local shard of ``mesh``: shards on one device
+    share one copy, the module itself on its own device and a deep copy
+    moved to each other device (each copy keeps its own weight caches). A
+    callable that is not an ``nn.Module`` is returned for every shard as
+    it is."""
+    if not isinstance(module, torch.nn.Module):
+        return [module] * len(mesh.devices)
+    home = _module_device(module)
+    copies = {}
+    for dev in mesh.distinct_devices:
+        if home is None or dev == home:
+            copies[dev] = module
+        else:
+            copies[dev] = copy.deepcopy(module).to(dev)
+    return [copies[dev] for dev in mesh.devices]
+
+
+def run_sharded(fn: Callable, devices: Sequence[torch.device],
+                args: Sequence) -> list:
+    """``[fn(*args[i]) for each shard i]`` with shard i on ``devices[i]``:
+    shards on one device run one after another in shard order; with more
+    than one distinct device, each device's shards run on a host thread of
+    their own (inside ``torch.cuda.device`` of it, for a CUDA device), so
+    that one device's host work overlaps another's kernels. The caller's
+    grad mode holds in every thread. The first error of a shard, in shard
+    order, is raised."""
+    groups: Dict[torch.device, List[int]] = {}
+    for i, dev in enumerate(devices):
+        groups.setdefault(dev, []).append(i)
+    out: list = [None] * len(devices)
+    if len(groups) == 1:
+        for i in range(len(devices)):
+            out[i] = fn(*args[i])
+        return out
+    grad = torch.is_grad_enabled()
+    errors: Dict[int, BaseException] = {}
+
+    def work(dev, idx):
+        current = torch.cuda.device(dev) if dev.type == "cuda" \
+            else contextlib.nullcontext()
+        with torch.set_grad_enabled(grad), current:
+            for i in idx:
+                try:
+                    out[i] = fn(*args[i])
+                except BaseException as exc:  # noqa: BLE001 - in caller
+                    errors[i] = exc
+                    return
+
+    threads = [threading.Thread(target=work, args=item, daemon=True)
+               for item in groups.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[min(errors)]
+    return out
+
+
+def synchronize(devices: Iterable[torch.device]) -> None:
+    """Wait for every CUDA device among ``devices``."""
+    for dev in dict.fromkeys(devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)

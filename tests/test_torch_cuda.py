@@ -959,3 +959,111 @@ def test_expand_and_beam_search_on_card_match_cpu(dev, tmp_path):
                                atol=2e-4)
     assert len_gpu == len_cpu == 8
     assert abs(db_gpu - db_cpu) <= 0.05
+
+
+def _mesh_devices(dev, n_cards):
+    if torch.cuda.device_count() < n_cards:
+        pytest.skip(f"needs {n_cards} GPUs")
+    return [torch.device("cuda", i % n_cards) for i in range(2)]
+
+
+@pytest.mark.parametrize("n_cards", [1, 2])
+def test_sharded_evaluator_on_card_matches_unsharded(dev, tmp_path,
+                                                     n_cards):
+    """Three slices (padded to 4) on two shards, both on cuda:0 or one on
+    each of two cards (a host thread each): the unsharded run's episode
+    lengths, rewards within 0.01 dB, and every shard launches K1-K3."""
+    from dt4image_restoration_tpu_torch.training.sharding import make_mesh
+    devices = _mesh_devices(dev, n_cards)
+    cfg = ModelConfig(block_size=18)
+    d = write_eval_dir(str(tmp_path / "4_15"), "4_15", n=3, seed=13)
+    records = [EvaluationDataset(d, 10.0)[i] for i in range(3)]
+    unet = UNetDenoiser().eval().requires_grad_(False)
+    unet.load_state_dict(random_unet_state_dict(0))
+    dt = _long_window_policy(cfg, dev)
+    want = Evaluator(dt=dt, denoise=unet.to(dev), cfg=cfg, max_timesteps=30,
+                     device=dev).evaluate_records(records)
+    kernels.reset_launch_counts()
+    got = Evaluator(dt=dt, denoise=unet, cfg=cfg, max_timesteps=30,
+                    device=dev, mesh=make_mesh(devices=devices)
+                    ).evaluate_records(records)
+    counts = kernels.launch_counts()
+    assert all(counts[k] >= 2 for k in ("conv_block", "kspace",
+                                        "dt_decode")), counts
+    np.testing.assert_array_equal(got["episode_len"], want["episode_len"])
+    np.testing.assert_allclose(got["reward"], want["reward"], rtol=0,
+                               atol=0.01)
+    assert got["final_state"].x.device == devices[0]
+
+
+@pytest.mark.parametrize("n_cards", [1, 2])
+def test_sharded_search_and_service_on_card(dev, tmp_path, n_cards):
+    """The device search (3 trees, padded to 4, 2 rounds) and the policy
+    service (3 requests at batch 4) on two shards: within 0.05 dB and 1e-5
+    of their unsharded runs, K4 and K5 launched by the search."""
+    from dt4image_restoration_tpu_torch.data import make_mat_record
+    from dt4image_restoration_tpu_torch.serving import RestorationRequest
+    from dt4image_restoration_tpu_torch.training.sharding import make_mesh
+    mesh = make_mesh(devices=_mesh_devices(dev, n_cards))
+    dt, unet, _ = _search_models(dev)
+    d = write_eval_dir(str(tmp_path / "4_15"), "4_15", n=3, seed=13)
+    records = [EvaluationDataset(d, 5.0)[i] for i in range(3)]
+    kw = dict(dt=dt, denoise=unet, model_cfg=dt.cfg,
+              cfg=MCTSConfig(iterations=2, max_timesteps=8),
+              value_fn=proxy_value_fn, device=dev)
+    want = DeviceMCTS(**kw).run_batch(records, verbose=False)
+    kernels.reset_launch_counts()
+    got = DeviceMCTS(mesh=mesh, **kw).run_batch(records, verbose=False)
+    counts = kernels.launch_counts()
+    assert counts["attention"] > 0 and counts["layernorm"] > 0, counts
+    np.testing.assert_allclose(got, want, rtol=0, atol=0.05)
+    reqs = [RestorationRequest(mat=make_mat_record(seed=i), rtg=5.0, task=2)
+            for i in range(3)]
+    for a, b in zip(_serve(dev, "policy", reqs),
+                    _serve(dev, "policy", reqs, mesh=mesh)):
+        np.testing.assert_allclose(b.image, a.image, rtol=0, atol=1e-5)
+        assert a.episode_len == b.episode_len
+
+
+def test_mesh_copies_cpu_models_with_packed_caches_to_card(dev, tmp_path):
+    """A U-Net and a DT built on the CPU, with K1's and K3's packed
+    weights already made there, sharded on [cuda:0, cuda:0]: the evaluator
+    deep-copies both onto the card once, the copy repacks there, K1 and K3
+    launch, and the results equal an unsharded run of the same models
+    moved to the card (episode lengths, rewards within 0.01 dB)."""
+    import copy
+
+    from dt4image_restoration_tpu_torch.training.sharding import make_mesh
+    cfg = ModelConfig(block_size=18)
+    d = write_eval_dir(str(tmp_path / "4_15"), "4_15", n=3, seed=13)
+    records = [EvaluationDataset(d, 10.0)[i] for i in range(3)]
+    unet = UNetDenoiser().eval().requires_grad_(False)
+    unet.load_state_dict(random_unet_state_dict(0))
+    dt = _long_window_policy(cfg, "cpu")
+    cpu_packs = [unet.net.inc.packed_weights(), unet.net.up4.packed_weights(),
+                 dt.packed_weights()]
+    want = Evaluator(dt=copy.deepcopy(dt).to(dev),
+                     denoise=copy.deepcopy(unet).to(dev), cfg=cfg,
+                     max_timesteps=30, device=dev).evaluate_records(records)
+    mesh = make_mesh(devices=[dev, dev])
+    card = mesh.devices[0]
+    kernels.reset_launch_counts()
+    ev = Evaluator(dt=dt, denoise=unet, cfg=cfg, max_timesteps=30,
+                   device=dev, mesh=mesh)
+    got = ev.evaluate_records(records)
+    counts = kernels.launch_counts()
+    assert all(counts[k] >= 2 for k in ("conv_block", "kspace",
+                                        "dt_decode")), counts
+    (_, dt_a, unet_a), (_, dt_b, unet_b) = ev._shards
+    assert dt_a is dt_b and unet_a is unet_b
+    assert dt_a is not dt and unet_a is not unet
+    assert next(dt.parameters()).device.type == "cpu"
+    for pack in (unet_a.net.inc.packed_weights(),
+                 unet_a.net.up4.packed_weights()):
+        assert pack.tc_weights.device == card
+        assert all(pack is not p for p in cpu_packs)
+    assert all(t.device == card for t in dt_a.packed_weights().values())
+    assert dt.packed_weights() is cpu_packs[2]
+    np.testing.assert_array_equal(got["episode_len"], want["episode_len"])
+    np.testing.assert_allclose(got["reward"], want["reward"], rtol=0,
+                               atol=0.01)
