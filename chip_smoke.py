@@ -56,6 +56,20 @@ prints one JSON line per phase. The paths:
     the CPU (dropout off, warmup 2), and 2 updates, a preemption save, a
     resume and 2 more against 4 straight updates. Training runs none of
     K1-K5 (they have no backward);
+  * native_gather: the training input pipeline's batch gather
+    (``data/native_loader.py``, C++ built by g++) on a train batch's
+    48 x 6 rows of 128x128 uint8 states, bit-exact against its numpy twin;
+    host ms of each;
+  * train_tp: training over a model axis, two Gloo ranks sharing the card
+    on a mesh of data 1 x model 2 (Megatron-split attention and MLP
+    projections), the published DT at B=48: 3 updates against the
+    one-process step on the card in the training band, then steps/s
+    beside the one-process step's, timed alike;
+  * dryrun: ``tools/dryrun_multichip.py`` as 4 ranks sharing the card (a
+    mesh of data 2 x model 2): the tensor-parallel train step, a sharded
+    greedy evaluation (K1, K2, K3) and a device search (K1, K2, K4, K5),
+    launches summed over the ranks as the paths dryrun_train (none),
+    dryrun_eval and dryrun_mcts;
   * trace: ``torch.profiler`` (``utils/profiling.py``) over one train step
     at B=48, one ADMM iteration at B=63 and at B=1, one search round of 16
     trees on each backend and one served policy batch of 16: device ms,
@@ -123,6 +137,11 @@ MESH_SEARCH_ROUNDS = 3                 # the mesh phase's searches
 MESH_EVAL_DB = 0.01                    # sharded eval against one shard
 SEARCH_DB = 0.05                       # the search band (PARITY.md)
 MESH_JOIN_S = 600                      # the mesh phase's ranks' limit
+SPAWN_JOIN_S = 300                     # train_tp's and dryrun's ranks'
+GATHER_IMAGES, GATHER_REPEATS = 4096, 20  # native_gather's states, runs
+TP_WARMUP_STEPS, TP_TIMED_STEPS = 2, 10   # train_tp's timing
+TP_BATCHES = 4                         # train_tp's seeded batches
+DRYRUN_RANKS = 4                       # a mesh of data 2 x model 2
 TRAIN_BATCH, TRAIN_T = 48, 6           # TrainerConfig's batch, 18 tokens
 TRAIN_STEPS, TRAIN_EPOCHS = 25, 2      # batches an epoch, epochs
 H100_F32_FLOPS = 67e12                 # float32 outside the tensor cores
@@ -1218,41 +1237,15 @@ def mesh_rank(rank, port, device, ckpt_dir, dirs, out_path):
 
 def spawn_mesh_ranks(dev, ckpt_dir, dirs, tmp):
     """Run :func:`mesh_rank` in two spawned processes on ``dev``; their
-    results and the seconds from the spawn to the last join. A
-    rank that fails or outlives MESH_JOIN_S fails the run, and is killed."""
-    import multiprocessing
-    import socket
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
+    results and the seconds from the spawn to the last join."""
     out_path = os.path.join(tmp, "mesh_rank")
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=mesh_rank,
-                         args=(r, port, str(dev), ckpt_dir, dirs,
-                               out_path))
-             for r in range(2)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    try:
-        for p in procs:
-            p.join(timeout=max(1.0, MESH_JOIN_S
-                               - (time.perf_counter() - t0)))
-    finally:
-        alive = [p for p in procs if p.is_alive()]
-        for p in alive:
-            p.kill()
-            p.join(10)
-    if alive or any(p.exitcode != 0 for p in procs):
-        raise AssertionError(f"mesh ranks: exit codes "
-                             f"{[p.exitcode for p in procs]}, killed "
-                             f"{len(alive)} still running after "
-                             f"{MESH_JOIN_S} s")
+    seconds = spawn_ranks(mesh_rank, 2, (str(dev), ckpt_dir, dirs, out_path),
+                          "mesh", MESH_JOIN_S)
     ranks = []
     for r in range(2):
         with open(f"{out_path}.{r}") as f:
             ranks.append(json.load(f))
-    return ranks, time.perf_counter() - t0
+    return ranks, seconds
 
 
 def phase_mesh(torch, dev, ckpt_dir, dirs, tmp, kernels):
@@ -1915,6 +1908,231 @@ def phase_train(torch, dev, tmp, kernels):
     return counts
 
 
+def phase_native_gather(torch):
+    """The training input pipeline's native gather
+    (``data/native_loader.py``, built by g++ from ``csrc/gather_scale.cpp``)
+    on a train batch's rows: TRAIN_BATCH x TRAIN_T windows of 128x128
+    uint8 states, row i holding TRAIN_T - i % 4 states and pads (-1)
+    after them, as ``train_batches`` masks them. Bit-exact against its
+    numpy twin; the host ms of each (median of GATHER_REPEATS)."""
+    import numpy as np
+
+    from dt4image_restoration_tpu_torch.data import native_loader
+    t0 = time.perf_counter()
+    available = native_loader.native_available()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, 256, (GATHER_IMAGES, 128 * 128)).astype(np.uint8)
+    b, t = TRAIN_BATCH, TRAIN_T
+    rows = rng.integers(0, GATHER_IMAGES, (b, t))
+    rows[np.arange(t)[None, :] >= (t - np.arange(b) % 4)[:, None]] = -1
+    flat = rows.reshape(-1)
+
+    def median_ms(fn):
+        times = []
+        for _ in range(GATHER_REPEATS):
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(times))
+
+    got = native_loader.gather_scale_u8(src, rows)
+    twin = native_loader._gather_numpy(src, flat).reshape(got.shape)
+    out = {"phase": "native_gather", "nvidia_smi": nvidia_smi(),
+           "host_cpus": os.cpu_count(), "native_available": available,
+           "build_s": build_s, "rows": [b, t],
+           "pads": int((rows < 0).sum()),
+           "bit_exact": bool(np.array_equal(got.view(np.uint32),
+                                            twin.view(np.uint32))),
+           "threads": native_loader.default_threads(),
+           "native_ms": median_ms(
+               lambda: native_loader.gather_scale_u8(src, rows)),
+           "native_1_thread_ms": median_ms(
+               lambda: native_loader.gather_scale_u8(src, rows, 1)),
+           "numpy_ms": median_ms(
+               lambda: native_loader._gather_numpy(src, flat))}
+    emit(out)
+    if not (available and out["bit_exact"]):
+        raise AssertionError(f"native gather: available {available}, "
+                             f"bit-exact {out['bit_exact']}")
+
+
+def tp_rank(rank, port, device, out_path):
+    """One of the train_tp phase's two ranks, both on ``device``: join a
+    Gloo group of two at ``port``, shard the published DT over a mesh of
+    data 1 x model 2, take 3 updates of ``train_batches(TP_BATCHES)``
+    (dropout off, warmup 2) and gather the weights; then time
+    TP_TIMED_STEPS more steps after TP_WARMUP_STEPS. Rank 0 writes the
+    results to ``out_path``, with the times at which it reached this
+    function, had joined the group and built the mesh, and had made its
+    first 3 updates."""
+    entered = time.time()
+    import torch
+    import torch.distributed as dist
+
+    from dt4image_restoration_tpu_torch.config import TrainerConfig
+    from dt4image_restoration_tpu_torch.ops import kernels
+    from dt4image_restoration_tpu_torch.training import (
+        gather_params, init_train_state, make_mesh, make_train_step,
+        shard_batch, shard_params)
+    from dt4image_restoration_tpu_torch.utils.device import resolve_device
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    try:
+        dev = resolve_device(device)
+        mesh = make_mesh(n_data=1, n_model=2, devices=[dev])
+        joined = time.time()
+        batches = train_batches(TP_BATCHES)
+        model = shard_params(
+            _train_model(torch, dev, dropout=0.0, embd_dropout=0.0), mesh,
+            tensor_parallel=True)
+        state = init_train_state(model, TrainerConfig(warmup_steps=2), 100)
+        step = make_train_step(mesh=mesh)
+        kernels.reset_launch_counts()
+        losses = [float(step(state, shard_batch(b, dev)))
+                  for b in batches[:3]]
+        first_steps = time.time()
+        weights = {k: v.detach().cpu().clone()
+                   for k, v in gather_params(model).items()}
+        shards = {n: tuple(p.shape) for n, p in model.named_parameters()
+                  if p.shape != weights[n].shape}
+        wall = _timed_steps(torch, step, state,
+                            [shard_batch(b, dev) for b in batches])
+        if rank == 0:
+            torch.save({"losses": losses, "weights": weights,
+                        "shards": shards, "steps_per_s":
+                            TP_TIMED_STEPS / wall,
+                        "launches": kernels.launch_counts(),
+                        "entered": entered, "joined": joined,
+                        "first_steps": first_steps},
+                       out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def _timed_steps(torch, step, state, batches):
+    """Seconds of TP_TIMED_STEPS train steps over ``batches`` in turn,
+    after TP_WARMUP_STEPS, to the device's end."""
+    dev = next(state.model.parameters()).device
+    for b in batches[:TP_WARMUP_STEPS]:
+        step(state, b)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for i in range(TP_TIMED_STEPS):
+        step(state, batches[i % len(batches)])
+    sync()
+    return time.perf_counter() - t0
+
+
+def spawn_ranks(target, n, args, what, join_s=None):
+    """Run ``target(rank, port, *args)`` in ``n`` spawned processes; the
+    seconds from the spawn to the last join. A rank that fails or outlives
+    ``join_s`` (default SPAWN_JOIN_S) fails the run, and is killed."""
+    join_s = SPAWN_JOIN_S if join_s is None else join_s
+    import multiprocessing
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, port) + tuple(args))
+             for r in range(n)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=max(1.0, join_s - (time.perf_counter() - t0)))
+    finally:
+        alive = [p for p in procs if p.is_alive()]
+        for p in alive:
+            p.kill()
+            p.join(10)
+    if alive or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"{what} ranks: exit codes "
+                             f"{[p.exitcode for p in procs]}, killed "
+                             f"{len(alive)} still running after "
+                             f"{join_s} s")
+    return time.perf_counter() - t0
+
+
+def phase_train_tp(torch, dev, tmp):
+    """Training over a model axis on the one card: two Gloo ranks sharing
+    it (``tp_rank``), the published DT at B=48 over a mesh of data 1 x
+    model 2; their 3 updates against the one-process step on the card in
+    the training band, then their steps/s beside the one-process step's,
+    timed in the same way here. Returns the ranks' kernel launches."""
+    from dt4image_restoration_tpu_torch.config import TrainerConfig
+    from dt4image_restoration_tpu_torch.training import (init_train_state,
+                                                         make_train_step,
+                                                         shard_batch)
+    out_path = os.path.join(tmp, "tp_rank0.pt")
+    t_spawn = time.time()
+    spawn_s = spawn_ranks(tp_rank, 2, (str(dev), out_path), "train_tp")
+    tp = torch.load(out_path, weights_only=False)
+    batches = train_batches(TP_BATCHES)
+
+    model = _train_model(torch, dev, dropout=0.0, embd_dropout=0.0)
+    state = init_train_state(model, TrainerConfig(warmup_steps=2), 100)
+    step = make_train_step()
+    losses = [float(step(state, shard_batch(b, dev))) for b in batches[:3]]
+    ref = {k: p.detach().cpu().clone() for k, p in model.named_parameters()}
+    one_rate = TP_TIMED_STEPS / _timed_steps(
+        torch, step, state, [shard_batch(b, dev) for b in batches])
+
+    errs = _leaf_errors(tp["weights"], ref)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(tp["losses"],
+                                                        losses))
+    out = {"phase": "train_tp", "nvidia_smi": nvidia_smi(),
+           "mesh": {"data": 1, "model": 2}, "ranks_on_one_card": 2,
+           "batch": TRAIN_BATCH, "spawn_s": spawn_s,
+           "rank_start_s": tp["entered"] - t_spawn,
+           "rank_joined_s": tp["joined"] - t_spawn,
+           "rank_first_updates_s": tp["first_steps"] - t_spawn,
+           "check_loss_tp": tp["losses"], "check_loss_one": losses,
+           "check_loss_max_rel": loss_rel,
+           "check_param_norm_rel": max(e[0] for e in errs.values()),
+           "check_param_max_rel": max(e[1] for e in errs.values()),
+           "check_param_worst": max(errs, key=lambda k: errs[k][0]),
+           "sharded": tp["shards"],
+           "tp_steps_per_s": tp["steps_per_s"],
+           "one_process_steps_per_s": one_rate,
+           "timed_steps": TP_TIMED_STEPS, "launches": tp["launches"],
+           "wall_s": time.time() - t_spawn}
+    emit(out)
+    if not tp["shards"]:
+        raise AssertionError("the TP ranks held no parameter shards")
+    if not (loss_rel <= 1e-5 and out["check_param_norm_rel"] <= 2e-4):
+        raise AssertionError(
+            f"TP training disagrees with the one-process step: loss "
+            f"{loss_rel}, parameters {out['check_param_norm_rel']} (norm)")
+    return tp["launches"]
+
+
+def phase_dryrun(torch):
+    """``tools/dryrun_multichip.py``: the multichip dry run as 4 ranks
+    sharing the card (a mesh of data 2 x model 2): the TP train step, the
+    sharded greedy evaluation and the device search. Returns the paths
+    dryrun_train, dryrun_eval and dryrun_mcts, each the sum of the ranks'
+    launches over that stage."""
+    from dt4image_restoration_tpu_torch.tools.dryrun_multichip import (
+        dryrun_multichip)
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(DRYRUN_RANKS, "cuda", join_s=SPAWN_JOIN_S)
+    wall = time.perf_counter() - t0
+    paths = {f"dryrun_{stage}": {k: sum(r[stage]["launches"][k]
+                                        for r in ranks)
+                                 for k in ranks[0][stage]["launches"]}
+             for stage in ("train", "eval", "mcts")}
+    emit({"phase": "dryrun", "nvidia_smi": nvidia_smi(),
+          "ranks": DRYRUN_RANKS, "mesh": ranks[0]["mesh"], "wall_s": wall,
+          "loss": [r["train"]["loss"] for r in ranks],
+          "eval_reward": ranks[0]["eval"]["reward"],
+          "mcts_reward": ranks[0]["mcts"]["reward"], "paths": paths})
+    return paths
+
+
 def phase_trace(torch, dev, ckpt_dir, tmp, dirs):
     """One train step (B=48), one ADMM iteration at B=63 and at B=1 and one
     served policy batch (B=16) under ``torch.profiler``, each region
@@ -2041,11 +2259,15 @@ def main() -> int:
         phase_arniqa(torch, dev, dirs)
         paths.update(phase_serve(torch, dev, ckpt_dir, kernels))
         paths["train"] = phase_train(torch, dev, tmp, kernels)
+        phase_native_gather(torch)
+        paths["train_tp"] = phase_train_tp(torch, dev, tmp)
+        paths.update(phase_dryrun(torch))
         phase_trace(torch, dev, ckpt_dir, tmp, dirs)
     emit({"phase": "launches", "paths": paths})
-    if any(paths["train"].values()):
-        raise AssertionError(f"the train path launched kernels: "
-                             f"{paths['train']}")
+    for path in ("train", "train_tp", "dryrun_train"):
+        if any(paths[path].values()):
+            raise AssertionError(f"the {path} path launched kernels: "
+                                 f"{paths[path]}")
     search = ("conv_block", "kspace", "attention", "layernorm")
     search16 = ("conv_block_bf16",) + search[1:]
     for path, want in (("rollout", ("conv_block", "kspace")),
@@ -2069,7 +2291,10 @@ def main() -> int:
                        ("mesh_search", search),
                        ("mesh_serve_policy", ("conv_block", "kspace",
                                               "dt_decode")),
-                       ("mesh_serve_fixed", ("conv_block", "kspace"))):
+                       ("mesh_serve_fixed", ("conv_block", "kspace")),
+                       ("dryrun_eval", ("conv_block", "kspace",
+                                        "dt_decode")),
+                       ("dryrun_mcts", search)):
         missing = [k for k in want if paths[path][k] <= 0]
         if missing:
             raise AssertionError(f"the {path} path launched no {missing}")

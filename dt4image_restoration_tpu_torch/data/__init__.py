@@ -1,7 +1,7 @@
 from .datasets import (BATCH_KEYS, EvaluationDataset,
                        EvaluationFlexibleDataset, EvaluationOptimalDataset,
-                       TrainingDataset, extract_task, gather_scale_u8,
-                       minmax_normalize)
+                       TrainingDataset, extract_task, minmax_normalize)
+from .native_loader import gather_scale_u8
 from .synthetic import cartesian_mask, make_mat_record, radial_mask, \
     shepp_logan, write_eval_dir
 

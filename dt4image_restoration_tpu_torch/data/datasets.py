@@ -1,10 +1,11 @@
 """Host-side data: trajectory training data (json + h5) and evaluation .mat
 slices (the port's own copy of the JAX package's ``data/datasets.py``).
 
-Pure numpy (and h5py, scipy where a file is read): batches and records stay
-on the host until the trainer or ``reset_from_mat`` moves them to the
-device. The numpy code is the JAX package's, so a batch is bit-identical to
-its batch for the same files and seeds.
+Host numpy (and h5py, scipy where a file is read; the preloaded batch
+gather in C++, :mod:`.native_loader`): batches and records stay on the host
+until the trainer or ``reset_from_mat`` moves them to the device. The numpy
+code is the JAX package's, so a batch is bit-identical to its batch for the
+same files and seeds.
 """
 from __future__ import annotations
 
@@ -21,13 +22,10 @@ from ..config import (
     OPTIMAL_RTG_RANGE,
     OPTIMAL_TASKS,
 )
+from .native_loader import gather_scale_u8
 
 ACTION_KEYS_JSON = ("T", "sigma_d", "mu")  # dict order in trajectory json
 BATCH_KEYS = ("states", "actions", "rtg", "traj_masks", "timesteps", "task")
-
-# lut[v] = float32(float64(v) / 255): the same values as
-# ``np.float32(uint8_array / 255)``, the streaming path's conversion.
-_LUT = (np.arange(256, dtype=np.float64) / 255.0).astype(np.float32)
 
 
 def extract_task(s: str) -> str:
@@ -41,22 +39,6 @@ def extract_task(s: str) -> str:
 
 def minmax_normalize(value, lo: float, hi: float):
     return (np.asarray(value, np.float32) - lo) / (hi - lo)
-
-
-def gather_scale_u8(src: np.ndarray, rows: np.ndarray) -> np.ndarray:
-    """``out[i] = float32(src[rows[i]] / 255)``; ``rows[i] < 0`` gives
-    zeros. ``src`` is the preloaded (n_images, img_elems) uint8 state array,
-    ``rows`` any-shape int64 indices; the result has shape
-    ``rows.shape + (img_elems,)``."""
-    rows = np.ascontiguousarray(rows, dtype=np.int64)
-    flat = rows.reshape(-1)
-    if flat.size and flat.max() >= src.shape[0]:
-        raise IndexError(f"row index {int(flat.max())} out of range for "
-                         f"{src.shape[0]} images")
-    out = np.zeros((flat.size, src.shape[1]), np.float32)
-    valid = flat >= 0
-    out[valid] = _LUT[src[flat[valid]]]
-    return out.reshape(rows.shape + (src.shape[1],))
 
 
 class TrainingDataset:
@@ -73,8 +55,9 @@ class TrainingDataset:
     ``normalize_rtg``.
 
     ``preload=True`` parses every json and reads every uint8 state once,
-    and assembles a batch's states with one numpy gather
-    (:func:`gather_scale_u8`); the batches are the same bit for bit.
+    and assembles a batch's states with one native gather
+    (:func:`.native_loader.gather_scale_u8`); the batches are the same bit
+    for bit.
     """
 
     def __init__(self, block_size: int, data_dir: str, action_dim: int,
@@ -288,8 +271,8 @@ class TrainingDataset:
             if len(idx) < batch_size and drop_remainder:
                 break
             if self._cache is not None:
-                # Preloaded: one gather assembles every state window of the
-                # batch.
+                # Preloaded: one native gather (GIL released, threaded)
+                # assembles every state window of the batch.
                 metas = [self._item_meta(j) for j in idx]
                 batch = {k: np.stack([m[j + 1] for m in metas])
                          for j, k in enumerate(BATCH_KEYS[1:])}

@@ -35,8 +35,8 @@ from ..models.decision_transformer import (DecisionTransformer,
                                            make_state_encode)
 from ..training.sharding import (Mesh, gather_eval_outputs,
                                  local_output_offset, padded_per_process,
-                                 process_count, process_index, replicate,
-                                 run_sharded, shard_eval_inputs, synchronize)
+                                 replicate, run_sharded, shard_eval_inputs,
+                                 synchronize)
 from ..utils.device import resolve_device
 
 
@@ -368,7 +368,8 @@ class Evaluator:
         n = len(records)
         if self.mesh is not None:
             # This process's share of the data axis is the padding unit.
-            unit = max(1, self.mesh.shape["data"] // process_count())
+            unit = max(1, self.mesh.shape["data"]
+                       // self.mesh.data_processes)
             records = list(records) + [records[-1]] * ((-n) % unit)
 
         def stack(i):
@@ -399,7 +400,7 @@ class Evaluator:
         # Gathered over processes, the outputs are the global batch; this
         # process's rows start at its offset (equal counts are checked).
         if not (return_global and self.mesh is not None
-                and process_count() > 1):
+                and self.mesh.data_processes > 1):
             off = local_output_offset(len(records), self.mesh)
             reward, old, ep_len = (x[off:off + n]
                                    for x in (reward, old, ep_len))
@@ -433,13 +434,13 @@ class Evaluator:
         if not groups:
             return 0.0
         records = [r for _, recs in groups for r in recs]
-        n_proc = process_count()
-        if self.mesh is not None and n_proc > 1:
+        n_proc = 1 if self.mesh is None else self.mesh.data_processes
+        if n_proc > 1:
             n_global = len(records)
             per_proc = padded_per_process(n_global, self.mesh)
             padded = [records[i % n_global]
                       for i in range(n_proc * per_proc)]
-            pid = process_index()
+            pid = self.mesh.data_index
             m = self.evaluate_records(
                 padded[pid * per_proc:(pid + 1) * per_proc],
                 return_global=True)

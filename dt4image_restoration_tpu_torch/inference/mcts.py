@@ -227,7 +227,7 @@ class MCTS:
         who put gathered outputs back in global order rely on."""
         if self.mesh is None:
             return n
-        unit = max(1, self.mesh.shape["data"] // process_count())
+        unit = max(1, self.mesh.shape["data"] // self.mesh.data_processes)
         return n + (-n) % unit
 
     def _prepare_batch(self, records: Sequence,

@@ -50,8 +50,7 @@ import torch
 from ..env.pnp import CSMRIState, reset_from_mat
 from ..ops.metrics import psnr
 from ..training.sharding import (gather_eval_outputs, local_output_offset,
-                                 padded_per_process, process_count,
-                                 process_index, run_sharded,
+                                 padded_per_process, run_sharded,
                                  shard_eval_inputs, tree_map)
 from ..utils.profiling import SEARCH_ROUND, annotate
 from .evaluator import EvalBuffers, seed_buffers
@@ -280,8 +279,8 @@ class DeviceMCTS(MCTS):
         the inverse of :meth:`_prepare_batch`'s padding. Otherwise the
         chunks run here, one after another."""
         pairs = list(zip(records, seeds))
-        n_proc = process_count()
-        if self.mesh is None or n_proc <= 1:
+        n_proc = 1 if self.mesh is None else self.mesh.data_processes
+        if n_proc <= 1:
             out: List[float] = []
             for off in range(0, len(pairs), batch_size):
                 chunk = pairs[off:off + batch_size]
@@ -294,7 +293,7 @@ class DeviceMCTS(MCTS):
             return []
         per_proc = padded_per_process(n_global, self.mesh)
         padded = [pairs[i % n_global] for i in range(n_proc * per_proc)]
-        pid = process_index()
+        pid = self.mesh.data_index
         local = padded[pid * per_proc:(pid + 1) * per_proc]
         rewards = np.full(n_proc * per_proc, np.nan)
         for off in range(0, per_proc, batch_size):
@@ -392,7 +391,7 @@ class DeviceMCTS(MCTS):
                 "probs": [float(p) for p in probs[i, j]],
                 "reward": float(r[i, j])} for i in range(I)]
                 for j in range(n_out)]
-        if return_global and mesh is not None and process_count() > 1:
+        if return_global and mesh is not None and mesh.data_processes > 1:
             # Every process's rewards, its padding included, in process
             # order (equal counts are checked).
             local_output_offset(n, mesh)

@@ -30,6 +30,17 @@ forwards over the same weights, as in the JAX package:
 Every kernel runs its plain PyTorch version on the CPU. Training runs the
 per-op forward without the kernels: K3, K4 and K5 have no backward.
 
+Training over a mesh's model axis runs each block on one shard of its
+projections (``Block.tp``/``Attention.tp``, a
+``training.tensor_parallel.ModelShard`` that ``training.shard_params``
+sets): this rank's heads of ``qkv_proj`` and rows of ``fc``, the matching
+inputs of ``o_proj`` and ``fc_proj``. Its dropout masks are the unsharded
+forward's, mask for mask: each is drawn at the full shape from the same
+generator and the shard takes its slice (the attention probabilities'
+heads) or all of it (after ``o_proj`` and ``fc_proj``, whose outputs are
+whole on every model rank), so the generator advances alike on every
+rank. Inference runs the unsharded module.
+
 ``cfg.dtype='bfloat16'`` computes at the JAX model's sites in bfloat16: the
 four projections of every block (``qkv_proj``, ``o_proj``, ``fc``,
 ``fc_proj``) and the state encoder's convs and dense layer. Parameters,
@@ -86,16 +97,27 @@ class DTOutput:
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            heads: Optional[Tuple[int, slice]] = None) -> torch.Tensor:
     """Inverted dropout at rate ``p`` when ``training``, with masks drawn
     from ``generator`` (None: PyTorch's default generator). Rate 1 gives
     zeros, as Flax's ``nn.Dropout`` does. A function, not a module: outside
-    training it costs the inference forwards one Python call a site."""
+    training it costs the inference forwards one Python call a site.
+
+    ``heads=(n_heads, shard)``: ``x`` (B, h, ...) holds the heads ``shard``
+    of ``n_heads``; the mask is drawn for all of them and sliced, so that
+    it is the unsharded mask's slice."""
     if not training or p == 0.0:
         return x
     if p == 1.0:
         return torch.zeros_like(x)
-    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    if heads is None:
+        keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    else:
+        n_heads, shard = heads
+        full = (x.shape[0], n_heads) + tuple(x.shape[2:])
+        keep = x.new_empty(full).bernoulli_(1.0 - p,
+                                            generator=generator)[:, shard]
     return x * keep / (1.0 - p)
 
 
@@ -146,7 +168,8 @@ class LayerNorm(nn.Module):
 class Attention(nn.Module):
     """Causal multi-head attention with a fused QKV projection; kernel K4
     when ``cfg.use_pallas`` and the module is not training. Dropout on the
-    attention probabilities and on the output projection."""
+    attention probabilities and on the output projection. With ``tp`` set
+    it computes this model rank's heads."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -158,35 +181,45 @@ class Attention(nn.Module):
         self.dropout = cfg.dropout
         self.dropout_generator: Optional[torch.Generator] = None
         self.dtype = compute_dtype(cfg.dtype)
+        self.tp = None      # a ModelShard: this rank's heads only
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, e = x.shape
-        h = self.n_heads
-        # Views of the (B, T, 3E) projection, in float32; K4 reads them as
-        # they are and returns the (B, H, T, D) view of a (B, T, H, D)
+        tp = self.tp
+        d = e // self.n_heads
+        # Views of the (B, T, 3hD) projection, in float32; K4 reads them as
+        # they are and returns the (B, h, T, D) view of a (B, T, h, D)
         # buffer, so the merge of the heads below is a view too.
-        qkv = linear(self.qkv_proj, x, self.dtype).float()
-        q, k, v = (a.reshape(b, t, h, e // h).transpose(1, 2)
-                   for a in qkv.split(e, dim=-1))
+        if tp is None:
+            h, heads = self.n_heads, None
+            qkv = linear(self.qkv_proj, x, self.dtype).float()
+        else:
+            shard = tp.heads(self.n_heads)
+            h, heads = shard.stop - shard.start, (self.n_heads, shard)
+            qkv = tp.column(x, self.qkv_proj, sections=3).float()
+        q, k, v = (a.reshape(b, t, h, d).transpose(1, 2)
+                   for a in qkv.split(h * d, dim=-1))
         if self.use_pallas and not self.training:
             y = fused_causal_attention(q, k, v)
         else:
-            att = (q @ k.transpose(-1, -2)) / math.sqrt(e // h)
+            att = (q @ k.transpose(-1, -2)) / math.sqrt(d)
             causal = torch.ones(t, t, dtype=torch.bool,
                                 device=x.device).tril()
             att = torch.softmax(att.masked_fill(~causal, float("-inf")),
                                 dim=-1)
             y = dropout(att, self.dropout, self.training,
-                        self.dropout_generator) @ v
-        return dropout(linear(self.o_proj, y.transpose(1, 2).reshape(b, t, e),
-                              self.dtype),
-                       self.dropout, self.training, self.dropout_generator)
+                        self.dropout_generator, heads) @ v
+        y = y.transpose(1, 2).reshape(b, t, h * d)
+        out = linear(self.o_proj, y, self.dtype) if tp is None \
+            else tp.row(y, self.o_proj)
+        return dropout(out, self.dropout, self.training,
+                       self.dropout_generator)
 
 
 class Block(nn.Module):
     """Pre-LN block: attention with a residual; the MLP output, after its
     dropout, replaces the stream (no residual), as in the reference
-    model."""
+    model. With ``tp`` set it computes this model rank's MLP features."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -199,12 +232,18 @@ class Block(nn.Module):
         self.dropout = cfg.dropout
         self.dropout_generator: Optional[torch.Generator] = None
         self.dtype = compute_dtype(cfg.dtype)
+        self.tp = None      # a ModelShard: this rank's MLP features only
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
-        h = F.gelu(linear(self.fc, self.ln2(x), self.dtype))
-        return dropout(linear(self.fc_proj, h, self.dtype), self.dropout,
-                       self.training, self.dropout_generator)
+        if self.tp is None:
+            h = F.gelu(linear(self.fc, self.ln2(x), self.dtype))
+            out = linear(self.fc_proj, h, self.dtype)
+        else:
+            h = F.gelu(self.tp.column(self.ln2(x), self.fc))
+            out = self.tp.row(h, self.fc_proj)
+        return dropout(out, self.dropout, self.training,
+                       self.dropout_generator)
 
 
 class DecisionTransformer(nn.Module):
@@ -224,6 +263,7 @@ class DecisionTransformer(nn.Module):
         self.predict_action = nn.Linear(e, cfg.action_dim)
         self.predict_rtg = nn.Linear(e, 1)
         self.dropout_generator: Optional[torch.Generator] = None
+        self.tp = None      # the blocks' ModelShard, when they hold one
         self._packed = None
         self._packed_key = None
 

@@ -1,13 +1,15 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written native code.
 
 Each ``csrc/<name>.cu`` exports a plain C function and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into its own shared library under
 ``build/kernels/`` at the root of the checkout, named by a hash of the
 source and the flags, so a library is rebuilt only when its source changes.
-The library is loaded with ``ctypes``; no PyTorch headers are compiled, which
-keeps a build to seconds. Nothing here runs at import time: the first CUDA
-call of a kernel wrapper builds what it needs, and :func:`build` starts one
-``nvcc`` per missing source, all together.
+A host source, ``csrc/<name>.cpp`` (``HOST_SOURCES``: the training input
+pipeline's batch gather), is built the same way by ``g++`` into the same
+directory. The library is loaded with ``ctypes``; no PyTorch headers are
+compiled, which keeps a build to seconds. Nothing here runs at import time:
+the first call of a wrapper builds what it needs, and :func:`build` starts
+one compiler per missing source, all together.
 """
 from __future__ import annotations
 
@@ -29,8 +31,10 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 KERNEL_SOURCES = ("kspace", "conv_block", "conv_block_bf16", "dt_decode",
                   "attention", "layernorm")
+HOST_SOURCES = ("gather_scale",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 _libs: Dict[tuple, ctypes.CDLL] = {}
 # Host threads of one process (one per device of a mesh) may load and
@@ -54,11 +58,24 @@ def _nvcc() -> str:
     return found
 
 
+def _source(name: str) -> Path:
+    return CSRC_DIR / (f"{name}.cpp" if name in HOST_SOURCES
+                       else f"{name}.cu")
+
+
+def _flags(name: str, defines: Sequence[str]) -> tuple:
+    """The compiler flags of ``name``: ``g++``'s for a host source,
+    ``nvcc``'s for a kernel."""
+    base = GXX_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+    return base + tuple(f"-D{d}" for d in defines)
+
+
 def library_path(name: str, defines: Sequence[str] = ()) -> Path:
-    """The library of ``csrc/<name>.cu`` built with the macros ``defines``
-    (``-D`` flags; none for the port's own build)."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    flags = " ".join(NVCC_FLAGS + tuple(f"-D{d}" for d in defines))
+    """The library of ``csrc/<name>.cu`` (or ``.cpp``, for a host source)
+    built with the macros ``defines`` (``-D`` flags; none for the port's
+    own build)."""
+    src = _source(name).read_bytes()
+    flags = " ".join(_flags(name, defines))
     digest = hashlib.sha256(src + flags.encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
@@ -72,10 +89,10 @@ def build_log(name: str, defines: Sequence[str] = ()) -> str:
 
 
 def build(names: Optional[Iterable] = None) -> float:
-    """Compile every missing library of ``names`` (default: all kernels)
-    with one ``nvcc`` each, started together. A name may also be a
-    ``(name, defines)`` pair, a build with ``-D`` macros. Returns the wall
-    seconds."""
+    """Compile every missing library of ``names`` (default: all CUDA
+    kernels) with one compiler each, started together. A name may also be
+    a ``(name, defines)`` pair, a build with ``-D`` macros. A failed build
+    raises with the compiler's output. Returns the wall seconds."""
     names = [(n, ()) if isinstance(n, str) else (n[0], tuple(n[1]))
              for n in (KERNEL_SOURCES if names is None else names)]
     todo = [n for n in names if not library_path(*n).exists()]
@@ -83,13 +100,13 @@ def build(names: Optional[Iterable] = None) -> float:
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     procs = {}
     for name, defines in todo:
         out = library_path(name, defines)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
-               str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        compiler = "g++" if name in HOST_SOURCES else _nvcc()
+        cmd = [compiler, *_flags(name, defines), "-o", str(tmp),
+               str(_source(name))]
         procs[(name, defines)] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), tmp, out)
@@ -97,7 +114,8 @@ def build(names: Optional[Iterable] = None) -> float:
     for (name, _), (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
+            failed.append(f"{name}: {Path(proc.args[0]).name} exit "
+                          f"{proc.returncode}\n{log}")
             continue
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
@@ -107,8 +125,8 @@ def build(names: Optional[Iterable] = None) -> float:
 
 
 def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built with the macros
-    ``defines``), built on first use."""
+    """The loaded library of ``csrc/<name>.cu`` or ``.cpp`` (built with the
+    macros ``defines``), built on first use."""
     key = (name, tuple(defines))
     lib = _libs.get(key)
     if lib is None:

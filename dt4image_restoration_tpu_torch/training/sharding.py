@@ -1,5 +1,5 @@
-"""Data-parallel training (the port's counterpart of the JAX package's
-``training/sharding.py``).
+"""Data- and tensor-parallel training (the port's counterpart of the JAX
+package's ``training/sharding.py``).
 
   * :func:`maybe_initialize_distributed` - ``torch.distributed`` from the
     ``torchrun`` environment, one process per device;
@@ -11,10 +11,19 @@
     values, so the update follows the masked mean over the global batch,
     as the JAX package's ``psum`` of weighted shards does. Averaging each
     rank's own masked mean (``DistributedDataParallel``) differs whenever
-    ranks hold different numbers of padded steps;
-  * :class:`Mesh`, :func:`make_mesh` - the devices of multi-device
-    inference: this process's local devices along a data axis, times the
-    processes;
+    ranks hold different numbers of padded steps. On a mesh the all-reduce
+    runs over its data axis (:func:`make_shard_map_train_step` is the step
+    on a mesh without a model axis);
+  * :class:`Mesh`, :func:`make_mesh` - a ``(data, model)`` mesh: for
+    inference, this process's local devices along a data axis, times the
+    processes; for training with a model axis, one device a process, rank
+    ``r`` at ``(r // n_model, r % n_model)``, with a process group along
+    each axis;
+  * :func:`param_partition_spec`, :func:`shard_params`,
+    :func:`gather_params` - the Decision Transformer's parameters over the
+    model axis (Megatron's column and row splits, ``tensor_parallel.py``):
+    which are split, this rank's shard, and the full reference-layout
+    state dict back;
   * :func:`sync_processes`, :func:`shard_eval_inputs`,
     :func:`gather_eval_outputs`, :func:`local_output_offset`,
     :func:`padded_per_process` - the inference helpers: inputs split over
@@ -43,6 +52,8 @@ import torch
 import torch.distributed as dist
 
 from ..utils.device import resolve_device
+from .tensor_parallel import (COLUMN, ModelShard, gather_state_dict,
+                              shard_of, split_of)
 from .trainer import TrainState, loss_fn
 
 # Seconds a process waits at a barrier of the inference helpers.
@@ -197,22 +208,36 @@ def all_reduce_weighted(params, loss: torch.Tensor, weight: torch.Tensor,
     return flat[-1]
 
 
-def make_train_step(dtype: str = "float32") -> Callable:
+def make_train_step(dtype: str = "float32", mesh: Optional["Mesh"] = None
+                    ) -> Callable:
     """``(state, batch) -> loss``: one update of ``state`` in place (the
     model in training mode, forward and masked MSE, backward, the weighted
     all-reduce when a process group of more than one rank exists, clip and
     AdamW, the scheduler, ``state.step += 1``). Returns the loss of the
     global batch, detached, on the device.
 
+    With ``mesh`` the all-reduce runs over its ``data_group``, for the
+    model's sharded and replicated parameters alike, each data rank
+    weighted by the valid count of its rows; the model-axis collectives of
+    a model from :func:`shard_params` run in its layers. Without a mesh it
+    runs over every process, and a sharded model is refused.
+
     ``dtype='bfloat16'`` runs forward and loss under ``torch.autocast``
     (bfloat16 matmuls and convolutions); parameters, gradients and the
     optimizer stay float32."""
     if dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unsupported training dtype {dtype!r}")
+    if mesh is None:
+        group, reduce = None, process_count() > 1
+    else:
+        group, reduce = mesh.data_group, mesh.data_processes > 1
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor]
              ) -> torch.Tensor:
         model = state.model
+        if mesh is None and model.tp is not None:
+            raise ValueError("a model sharded over a model axis trains "
+                             "with make_train_step(mesh=...)")
         model.train()
         device = next(model.parameters()).device
         autocast = torch.autocast(device.type, dtype=torch.bfloat16) \
@@ -221,9 +246,10 @@ def make_train_step(dtype: str = "float32") -> Callable:
             loss = loss_fn(model, batch)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        if process_count() > 1:
+        if reduce:
             params = [p for p in model.parameters() if p.requires_grad]
-            loss = all_reduce_weighted(params, loss, valid_count(batch))
+            loss = all_reduce_weighted(params, loss, valid_count(batch),
+                                       group=group)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
@@ -231,25 +257,73 @@ def make_train_step(dtype: str = "float32") -> Callable:
     return step
 
 
-# -- multi-device and multi-process inference ------------------------------
+def make_shard_map_train_step(mesh: "Mesh", dtype: str = "float32"
+                              ) -> Callable:
+    """The JAX package's explicit data-parallel step (per-shard gradients,
+    a weighted ``psum`` over the data axis, replicated parameters): the
+    port's :func:`make_train_step` on ``mesh``, whose model axis must be
+    1."""
+    if mesh.n_model != 1:
+        raise ValueError(f"make_shard_map_train_step is data-parallel "
+                         f"only; the mesh has a model axis of "
+                         f"{mesh.n_model} (use make_train_step(mesh=...))")
+    return make_train_step(dtype, mesh)
+
+
+# -- the mesh ----------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The devices of multi-device inference: this process's local devices
-    along a data axis, repeated over the processes. ``shape`` is the
-    global one, as a JAX mesh's is: ``{"data": len(devices) *
-    process_count(), "model": 1}``, so ``shape["data"] //
-    process_count()`` is each process's share.
+    """A ``(data, model)`` mesh. ``devices`` are this process's local
+    devices along the data axis, repeated over the processes of the data
+    axis; ``shape`` is the global one, as a JAX mesh's is:
+    ``{"data": len(devices) * process_count() // n_model, "model":
+    n_model}``.
 
     ``devices`` may name one device more than once (``["cpu", "cpu"]``,
     ``[cuda:0, cuda:0]``): each entry is a shard of its own, and shards on
     one device run one after another. That is how a CPU, or a machine with
-    one card, holds a mesh of two shards."""
+    one card, holds a mesh of two shards.
+
+    With a model axis (``n_model > 1``) every process holds one device,
+    and rank ``r`` sits at ``(data_index, model_index) = (r // n_model,
+    r % n_model)``, the row-major layout of JAX's ``reshape(n_data,
+    n_model)``. ``model_group`` holds the ``n_model`` ranks of this rank's
+    data index, ``data_group`` the ranks of its model index (None for the
+    default group, without a model axis). Inference on such a mesh shards
+    over the data axis and is replicated over the model axis."""
     devices: Tuple[torch.device, ...]
+    n_model: int = 1
+    data_group: Any = dataclasses.field(default=None, compare=False,
+                                        repr=False)
+    model_group: Any = dataclasses.field(default=None, compare=False,
+                                         repr=False)
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": len(self.devices) * process_count(), "model": 1}
+        return {"data": len(self.devices) * self.data_processes,
+                "model": self.n_model}
+
+    @property
+    def data_processes(self) -> int:
+        """The processes along the data axis: every process, over the
+        model axis's size."""
+        return process_count() // self.n_model
+
+    @property
+    def data_index(self) -> int:
+        """This process's place along the data axis."""
+        return process_index() // self.n_model
+
+    @property
+    def model_index(self) -> int:
+        """This process's place along the model axis."""
+        return process_index() % self.n_model
+
+    def model_shard(self) -> ModelShard:
+        """This rank's place on the model axis, for its model's layers."""
+        return ModelShard(group=self.model_group, index=self.model_index,
+                          size=self.n_model)
 
     @property
     def distinct_devices(self) -> List[torch.device]:
@@ -262,16 +336,20 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
     """A :class:`Mesh` over ``devices``, this process's local devices
     (default: every visible GPU when the world is one process, else the
     process's own ``cuda:LOCAL_RANK``). ``n_data``, if given, must equal
-    the local devices times the processes. Inference shards the data axis
-    only: ``n_model`` is the JAX signature's, and any value but 1 raises
-    ``NotImplementedError``."""
-    if n_model != 1:
-        raise NotImplementedError(
-            "the port shards inference over the data axis only; tensor "
-            "parallelism over a model axis (param_partition_spec, "
-            "shard_params, make_shard_map_train_step) is queued in "
-            "ROADMAP.md section 1, 'Training over the model axis'")
+    the local devices times the processes over ``n_model``.
+
+    ``n_model > 1`` needs ``n_data * n_model`` processes of one device
+    each (``torchrun --nproc_per_node``): one process holds one model
+    shard, where JAX's GSPMD splits the model over the devices of one
+    process. It makes the axes' process groups with ``dist.new_group`` on
+    the default group's backend (NCCL under ``torchrun`` on distinct
+    GPUs, Gloo where ranks share a GPU or run on the CPU); that call is
+    collective, so every rank makes the same meshes in the same order."""
+    if n_model < 1:
+        raise ValueError(f"n_model must be >= 1, got {n_model}")
     n_proc = process_count()
+    if n_model > 1:
+        return _model_mesh(n_data, n_model, devices, n_proc)
     if devices is None:
         if n_proc > 1:
             devices = [torch.device(
@@ -288,6 +366,134 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
             f"n_data = {n_data} must equal the local devices times the "
             f"processes, {len(devices)} * {n_proc}")
     return Mesh(devices=devices)
+
+
+def _model_mesh(n_data: Optional[int], n_model: int,
+                devices: Optional[Sequence], n_proc: int) -> Mesh:
+    """:func:`make_mesh` with a model axis: the checks, this rank's device
+    and the axes' groups."""
+    if n_proc == 1:
+        raise ValueError(
+            f"a model axis of {n_model} needs one process per model shard: "
+            f"launch n_data * n_model processes (torchrun "
+            f"--nproc_per_node), one device each; one process cannot hold "
+            f"a model axis")
+    if n_proc % n_model or (n_data is not None
+                            and n_data * n_model != n_proc):
+        raise ValueError(
+            f"n_data * n_model = {n_data} * {n_model} must equal the "
+            f"processes, {n_proc}")
+    if devices is None:
+        devices = [torch.device("cuda",
+                                int(os.environ.get("LOCAL_RANK", "0")))]
+    devices = tuple(_indexed(resolve_device(d)) for d in devices)
+    if len(devices) != 1:
+        raise ValueError(f"a mesh with a model axis holds one device a "
+                         f"process, got {len(devices)}")
+    data_group, model_group = _axis_groups(n_model)
+    return Mesh(devices=devices, n_model=n_model, data_group=data_group,
+                model_group=model_group)
+
+
+_AXIS_GROUPS: Dict[int, Any] = {}
+
+
+def _axis_groups(n_model: int):
+    """This rank's (data group, model group) on a mesh with a model axis
+    of ``n_model``, made once per default group and axis size: every
+    group of both axes, on every rank, in one order (``dist.new_group``
+    is collective)."""
+    world = dist.group.WORLD
+    cached = _AXIS_GROUPS.get(n_model)
+    if cached is None or cached[0] is not world:
+        n_proc, backend = process_count(), dist.get_backend()
+        ranks = np.arange(n_proc).reshape(-1, n_model)
+        model_groups = [dist.new_group(row.tolist(), backend=backend)
+                        for row in ranks]
+        data_groups = [dist.new_group(col.tolist(), backend=backend)
+                       for col in ranks.T]
+        cached = (world, model_groups, data_groups)
+        _AXIS_GROUPS[n_model] = cached
+    _, model_groups, data_groups = cached
+    r = process_index()
+    return data_groups[r % n_model], model_groups[r // n_model]
+
+
+# -- parameters over the model axis -----------------------------------------
+
+def _names(model_or_state_dict) -> List[str]:
+    if isinstance(model_or_state_dict, torch.nn.Module):
+        return [n for n, _ in model_or_state_dict.named_parameters()]
+    return list(model_or_state_dict)
+
+
+def param_partition_spec(model_or_state_dict, tensor_parallel: bool
+                         ) -> Dict[str, tuple]:
+    """Per parameter name, its partition over the mesh axes in the torch
+    layout (weights ``(out, in)``, the transpose of JAX's kernels): ``()``
+    replicated; with ``tensor_parallel``, ``("model", None)`` for the
+    column-split ``qkv_proj`` and ``fc`` weights (their output features;
+    ``qkv_proj``'s by heads within each of q, k and v) and ``(None,
+    "model")`` for the row-split ``o_proj`` and ``fc_proj`` weights (their
+    input features). Biases and every other parameter are replicated, as
+    in the JAX package's ``param_partition_spec``."""
+    out = {}
+    for name in _names(model_or_state_dict):
+        how = split_of(name) if tensor_parallel else None
+        out[name] = () if how is None else \
+            (("model", None) if how[0] == COLUMN else (None, "model"))
+    return out
+
+
+def shard_params(model_or_state_dict, mesh: Mesh,
+                 tensor_parallel: bool = False):
+    """This rank's shard of the Decision Transformer's parameters on
+    ``mesh``. A state dict (the reference layout) gives a new dict of
+    shards. A model is changed in place and returned: its split weights
+    become this rank's shards and its blocks run on them (``Block.tp``,
+    ``Attention.tp``); shard it before building its optimizer. Without
+    ``tensor_parallel``, or on a mesh without a model axis, every
+    parameter is replicated and the input is returned as it is."""
+    if not tensor_parallel or mesh.n_model == 1:
+        return model_or_state_dict
+    shard = mesh.model_shard()
+    if not isinstance(model_or_state_dict, torch.nn.Module):
+        return {k: shard_of(k, v, shard)
+                for k, v in model_or_state_dict.items()}
+    model = model_or_state_dict
+    if model.tp is not None:
+        raise ValueError("the model is already sharded")
+    with torch.no_grad():
+        for name, p in list(model.named_parameters()):
+            if split_of(name) is not None:
+                owner, leaf = name.rsplit(".", 1)
+                setattr(model.get_submodule(owner), leaf,
+                        torch.nn.Parameter(shard_of(name, p, shard)))
+    model.tp = shard
+    for blk in model.blocks:
+        blk.tp = blk.attn.tp = shard
+    return model
+
+
+def gather_params(model_or_state_dict, mesh: Optional[Mesh] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`shard_params`: the full state dict, in the
+    reference layout, on every rank. A model gives its own (its shard
+    names the group; ``mesh`` may be omitted); a state dict of this
+    rank's shards needs ``mesh``. Collective over the model axis: every
+    model rank calls it. Without shards (a model that holds none, a mesh
+    without a model axis) it is the state dict as it is."""
+    if isinstance(model_or_state_dict, torch.nn.Module):
+        shard = model_or_state_dict.tp
+        sd = model_or_state_dict.state_dict()
+    else:
+        shard = None if mesh is None or mesh.n_model == 1 \
+            else mesh.model_shard()
+        sd = dict(model_or_state_dict)
+    return sd if shard is None else gather_state_dict(sd, shard)
+
+
+# -- multi-device and multi-process inference ------------------------------
 
 
 def _indexed(dev: torch.device) -> torch.device:
@@ -410,17 +616,19 @@ def gather_eval_outputs(shards: Sequence, mesh: Optional[Mesh] = None,
                         axis: int = 0):
     """Inference outputs as host numpy arrays. ``shards`` holds one tree
     per local shard (one with ``mesh=None``), joined along ``axis`` in
-    shard order. With a mesh and several processes, every process's join
-    is then gathered in process order, so that each sees the global batch
-    (as JAX's ``process_allgather(tiled=True)``). With ``mesh=None`` no
-    collective is issued, even in a multi-process job: a per-process
-    serving queue holds process-local outputs."""
+    shard order. With a mesh over several processes of its data axis,
+    every process's join is then gathered in the data axis's order, so
+    that each sees the global batch (as JAX's
+    ``process_allgather(tiled=True)``); of the model ranks of a data index,
+    which hold the same rows, the first one's are taken. With
+    ``mesh=None`` no collective is issued, even in a multi-process job: a
+    per-process serving queue holds process-local outputs."""
     local = _join([tree_map(_host, t) for t in shards], axis)
-    if mesh is None or process_count() <= 1:
+    if mesh is None or mesh.data_processes <= 1:
         return local
     everyone: list = [None] * process_count()
     dist.all_gather_object(everyone, local, group=host_group())
-    return _join(everyone, axis)
+    return _join(everyone[::mesh.n_model], axis)
 
 
 def _join(trees: Sequence, axis: int):
@@ -440,11 +648,11 @@ def _zip_map(fn: Callable, trees: Sequence):
 def local_output_offset(n_local_padded: int, mesh: Optional[Mesh] = None
                         ) -> int:
     """This process's row offset in the gathered global outputs:
-    ``process_index() * n_local_padded``. That holds only when every
+    ``mesh.data_index * n_local_padded``. That holds only when every
     process submitted the same padded count, which this checks with a
     gather: a mismatch raises instead of attributing another process's
-    rows. 0 for one process or ``mesh=None``."""
-    if mesh is None or process_count() <= 1:
+    rows. 0 for one process along the data axis or ``mesh=None``."""
+    if mesh is None or mesh.data_processes <= 1:
         return 0
     counts: list = [None] * process_count()
     dist.all_gather_object(counts, int(n_local_padded), group=host_group())
@@ -452,15 +660,16 @@ def local_output_offset(n_local_padded: int, mesh: Optional[Mesh] = None
         raise ValueError(
             f"multi-host inference needs equal per-process record counts; "
             f"got {counts} (pad every process to the same length)")
-    return process_index() * n_local_padded
+    return mesh.data_index * n_local_padded
 
 
 def padded_per_process(n_global: int, mesh: Mesh) -> int:
     """The length of each process's slice when a global record list is cut
-    into equal contiguous process slices: ceil(n_global / processes),
-    rounded up to this process's share of the data axis. Callers wrap-pad
-    the global list to ``processes * padded_per_process``."""
-    n_proc = process_count()
+    into equal contiguous slices, one for each process along the data
+    axis: ceil(n_global / those processes), rounded up to this process's
+    share of the data axis. Callers wrap-pad the global list to
+    ``mesh.data_processes * padded_per_process``."""
+    n_proc = mesh.data_processes
     per = -(-n_global // n_proc)
     unit = max(1, mesh.shape["data"] // n_proc)
     return per + (-per) % unit

@@ -33,9 +33,11 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import TrainerConfig
 from ..models.decision_transformer import DecisionTransformer
+from .tensor_parallel import gather, gather_state_dict, shard_of, split_of
 
 logger = logging.getLogger(__name__)
 
@@ -76,21 +78,48 @@ class ClippedAdamW(torch.optim.AdamW):
     ``optax.chain(clip_by_global_norm, adamw)``. The scale is computed on
     the device (no host synchronisation).
 
+    For a model sharded over a model axis, ``sharded`` names the
+    parameters that hold one shard each and ``model_group`` the ranks that
+    hold the others: their squared norms are summed over the group, the
+    replicated parameters' counted once, so every rank clips by the
+    unsharded model's norm. AdamW and the decay are elementwise, so the
+    sharded state is slices of the unsharded one.
+
     The weight decay is the same as optax's: optax updates
     ``p -= lr * (adam + wd * p)``, PyTorch ``p *= 1 - lr * wd`` and then
     ``p -= lr * adam``; both give ``p - lr * wd * p - lr * adam``."""
 
-    def __init__(self, params, max_grad_norm: float, **kwargs) -> None:
+    def __init__(self, params, max_grad_norm: float, model_group=None,
+                 sharded: Iterable[torch.nn.Parameter] = (),
+                 **kwargs) -> None:
         super().__init__(params, **kwargs)
         self.max_grad_norm = max_grad_norm
+        self.model_group = model_group
+        self._sharded = {id(p) for p in sharded}
+
+    def _global_norm(self) -> Optional[torch.Tensor]:
+        params = [p for g in self.param_groups for p in g["params"]
+                  if p.grad is not None]
+        if not params:
+            return None
+        if self.model_group is None:
+            return torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm([p.grad for p in params])))
+        sums = []
+        for sharded in (True, False):
+            grads = [p.grad for p in params
+                     if (id(p) in self._sharded) == sharded]
+            sums.append(torch.stack(torch._foreach_norm(grads)).square()
+                        .sum() if grads else params[0].grad.new_zeros(()))
+        dist.all_reduce(sums[0], group=self.model_group)
+        return torch.sqrt(sums[0] + sums[1])
 
     @torch.no_grad()
     def step(self, closure=None):
         grads = [p.grad for g in self.param_groups for p in g["params"]
                  if p.grad is not None]
         if grads:
-            norm = torch.linalg.vector_norm(torch.stack(
-                torch._foreach_norm(grads)))
+            norm = self._global_norm()
             # g / norm * max_norm where the norm exceeds max_norm, in
             # optax's order of operations; g / 1 * 1 elsewhere.
             within = norm < self.max_grad_norm
@@ -105,14 +134,19 @@ def make_optimizer(cfg: TrainerConfig, max_steps: int,
                    model: torch.nn.Module
                    ) -> Tuple[ClippedAdamW, torch.optim.lr_scheduler.LambdaLR]:
     """The optimizer and its LR scheduler. Step the scheduler once after
-    each ``optimizer.step()``: update k then runs at ``schedule(k - 1)``."""
+    each ``optimizer.step()``: update k then runs at ``schedule(k - 1)``.
+    A model sharded over a model axis clips by the norm over the axis."""
     decayed, rest = decay_split(model)
+    tp = getattr(model, "tp", None)
     opt = ClippedAdamW(
         [{"params": list(decayed.values()),
           "weight_decay": cfg.weight_decay},
          {"params": list(rest.values()), "weight_decay": 0.0}],
-        max_grad_norm=cfg.grad_norm_clipping, lr=cfg.learning_rate,
-        betas=tuple(cfg.betas), eps=1e-8)
+        max_grad_norm=cfg.grad_norm_clipping,
+        model_group=None if tp is None else tp.group,
+        sharded=[p for n, p in model.named_parameters()
+                 if tp is not None and split_of(n) is not None],
+        lr=cfg.learning_rate, betas=tuple(cfg.betas), eps=1e-8)
     schedule = make_lr_schedule(cfg, max_steps)
     scheduler = torch.optim.lr_scheduler.LambdaLR(
         opt, lambda step: schedule(step) / cfg.learning_rate)
@@ -179,7 +213,12 @@ def check_trainable(model: DecisionTransformer) -> None:
 class TrainState:
     """What one update changes: the model (with the generator of its
     dropout masks), its optimizer and LR scheduler, and the count of
-    updates."""
+    updates.
+
+    For a model sharded over a model axis, :meth:`state_dict` gathers the
+    weights and the Adam moments into the unsharded layout (a collective:
+    every model rank calls it) and :meth:`load_state_dict` cuts them again,
+    so a saved state does not depend on the model axis's size."""
     model: DecisionTransformer
     optimizer: ClippedAdamW
     scheduler: torch.optim.lr_scheduler.LambdaLR
@@ -190,9 +229,13 @@ class TrainState:
         """The full state of a resumable run, with the RNG states: the
         dropout generator, PyTorch's CPU generator and ``data_rng``."""
         gen = self.model.dropout_generator
+        tp = self.model.tp
+        model_sd = self.model.state_dict()
         return {
-            "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
+            "model": model_sd if tp is None
+            else gather_state_dict(model_sd, tp),
+            "optimizer": self._moments(self.optimizer.state_dict(),
+                                       gather_whole=True),
             "scheduler": self.scheduler.state_dict(),
             "step": self.step,
             "rng": {
@@ -206,8 +249,13 @@ class TrainState:
     def load_state_dict(self, sd: Dict[str, Any],
                         data_rng: Optional[np.random.Generator] = None
                         ) -> None:
-        self.model.load_state_dict(sd["model"])
-        self.optimizer.load_state_dict(sd["optimizer"])
+        tp = self.model.tp
+        model_sd = sd["model"]
+        if tp is not None:
+            model_sd = {k: shard_of(k, v, tp) for k, v in model_sd.items()}
+        self.model.load_state_dict(model_sd)
+        self.optimizer.load_state_dict(self._moments(sd["optimizer"],
+                                                     gather_whole=False))
         self.scheduler.load_state_dict(sd["scheduler"])
         self.step = int(sd["step"])
         rng = sd["rng"]
@@ -217,6 +265,26 @@ class TrainState:
         torch.set_rng_state(rng["torch"])
         if data_rng is not None and rng["data"] is not None:
             data_rng.bit_generator.state = rng["data"]
+
+    def _moments(self, opt_sd: Dict[str, Any], gather_whole: bool
+                 ) -> Dict[str, Any]:
+        """``opt_sd`` with the Adam moments of the sharded parameters
+        gathered whole (``gather_whole``) or cut to this rank's shards; as
+        it is for an unsharded model."""
+        tp = self.model.tp
+        if tp is None:
+            return opt_sd
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        order = [names[id(p)] for g in self.optimizer.param_groups
+                 for p in g["params"]]
+        state = {}
+        for i, st in opt_sd["state"].items():
+            name = order[int(i)]
+            state[i] = {k: (gather(name, v, tp) if gather_whole
+                            else shard_of(name, v, tp))
+                        if k in ("exp_avg", "exp_avg_sq") else v
+                        for k, v in st.items()}
+        return {**opt_sd, "state": state}
 
 
 def init_train_state(model: DecisionTransformer, cfg: TrainerConfig,
@@ -310,7 +378,7 @@ class Trainer:
     def _train_loop(self) -> TrainState:
         from ..utils.profiling import StepTimer
         from .sharding import (background_batches, prefetch_shard,
-                               process_index, shard_batch)
+                               shard_batch)
         device = next(self.state.model.parameters()).device
         losses = collections.deque(maxlen=10)
         self.step_timer = StepTimer(device)
@@ -346,8 +414,7 @@ class Trainer:
             logger.debug("Epoch %d done in %.1fs", epoch, dur)
             if self._wandb:
                 self._wandb.log({"training_duration": dur})
-            if (epoch % self.config.save_every == 0 and self.checkpoint_dir
-                    and process_index() == 0):
+            if epoch % self.config.save_every == 0 and self.checkpoint_dir:
                 self._save_epoch(epoch)
         return self._finalize(losses)
 
@@ -366,16 +433,30 @@ class Trainer:
             active = bool(flag.item())
         return active
 
+    def _host_state(self) -> Optional[Dict[str, Any]]:
+        """Host copies of the full resume state on rank 0, None elsewhere.
+        Every rank of a model sharded over a model axis takes part: the
+        state is gathered over the axis."""
+        from ..utils.checkpoint import to_host
+        from .sharding import process_index
+        if process_index() != 0 and self.state.model.tp is None:
+            return None
+        full = self.state.state_dict(self.data_rng)
+        return to_host(full) if process_index() == 0 else None
+
     def _save_epoch(self, epoch: int) -> None:
-        from ..utils.checkpoint import (save_checkpoint, save_dt_reference,
-                                        to_host)
+        """Rank 0 writes ``model_<epoch>.pt`` (the reference layout) and
+        ``state_latest.pt``, both unsharded."""
+        from ..utils.checkpoint import save_checkpoint, save_dt_reference
+        # Host copies now: the next step must not change a queued save.
+        full = self._host_state()
+        if full is None:
+            return
         cfg = self.state.model.cfg
         model_path = os.path.join(self.checkpoint_dir,
                                   MODEL_FILE.format(epoch=epoch))
         state_path = os.path.join(self.checkpoint_dir, STATE_FILE)
-        # Host copies now: the next step must not change a queued save.
-        weights = to_host(self.state.model.state_dict())
-        full = to_host(self.state.state_dict(self.data_rng))
+        weights = full["model"]
         if self._saver:
             self._saver.defer(save_dt_reference, model_path, weights, cfg)
             self._saver.submit(state_path, full)
@@ -422,12 +503,14 @@ class Trainer:
         return self.state
 
     def _save_resume_state(self) -> None:
-        from .sharding import process_index
-        if self.checkpoint_dir and process_index() == 0:
-            from ..utils.checkpoint import save_checkpoint, to_host
+        if not self.checkpoint_dir:
+            return
+        full = self._host_state()
+        if full is not None:
+            from ..utils.checkpoint import save_checkpoint
             if self._saver:
                 # Queued epoch saves first: a stale queued state_latest
                 # must not land after this fresher one.
                 self._saver.wait()
             save_checkpoint(os.path.join(self.checkpoint_dir, STATE_FILE),
-                            to_host(self.state.state_dict(self.data_rng)))
+                            full)

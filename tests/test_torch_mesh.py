@@ -104,11 +104,6 @@ def shared():
 
 # -- configuration and arithmetic --------------------------------------------
 
-# Names the JAX package documents (tests/test_api_surface.py) that the port
-# has not ported yet: training over the model axis (ROADMAP.md section 1).
-NOT_PORTED = {"make_shard_map_train_step", "shard_params"}
-
-
 @pytest.mark.parametrize("module", ["config", "training",
                                     "training.sharding"])
 def test_port_has_the_documented_names(module):
@@ -117,8 +112,7 @@ def test_port_has_the_documented_names(module):
     from test_api_surface import DOCUMENTED
     names = set(DOCUMENTED[f"dt4image_restoration_tpu.{module}"])
     port = importlib.import_module(f"dt4image_restoration_tpu_torch.{module}")
-    assert sorted(n for n in names - NOT_PORTED
-                  if not hasattr(port, n)) == []
+    assert sorted(n for n in names if not hasattr(port, n)) == []
 
 @pytest.mark.parametrize("name", ["DenoiserConfig", "MeshConfig", "Config"])
 def test_config_matches_jax(name):
@@ -146,7 +140,9 @@ def test_padding_arithmetic_matches_jax(n_data):
 
 
 def test_make_mesh_validates():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # One process holds no model axis: the port runs a model shard per
+    # process (JAX's GSPMD splits one process's devices).
+    with pytest.raises(ValueError, match="torchrun"):
         make_mesh(n_model=2, devices=CPU2)
     with pytest.raises(ValueError, match="must equal"):
         make_mesh(n_data=3, devices=CPU2)
@@ -222,10 +218,12 @@ def test_gather_without_a_mesh_issues_no_collective(monkeypatch):
 
 
 def test_mesh_shape_counts_every_process(monkeypatch):
-    """A mesh's only field is its local devices; its data axis is those
-    devices times the processes, however the mesh was built, so the
-    padding unit and the per-process share agree with the split."""
-    assert [f.name for f in dataclasses.fields(Mesh)] == ["devices"]
+    """A mesh's fields are its local devices, its model axis and that
+    axis's groups; its data axis is those devices times the processes
+    (over the model axis), however the mesh was built, so the padding unit
+    and the per-process share agree with the split."""
+    assert [f.name for f in dataclasses.fields(Mesh)] \
+        == ["devices", "n_model", "data_group", "model_group"]
     monkeypatch.setattr(sharding, "process_count", lambda: 2)
     mesh = Mesh(devices=(torch.device("cpu"),) * 2)
     assert mesh.shape == {"data": 4, "model": 1}
