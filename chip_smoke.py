@@ -70,6 +70,14 @@ prints one JSON line per phase. The paths:
     greedy evaluation (K1, K2, K3) and a device search (K1, K2, K4, K5),
     launches summed over the ranks as the paths dryrun_train (none),
     dryrun_eval and dryrun_mcts;
+  * validate_parity: the real-checkpoint parity harness
+    (``tools/validate_parity.py``) in its ``--selftest``: random weights
+    in the reference's layouts, synthetic slices, the oracle on the CPU
+    and the port on the card, at the published widths; eval and flex (RTG
+    3) on 7 slices x 30 timesteps (launch path validate_parity_eval: K1,
+    K2, K3), the device search on 2 slices x 8 iterations x 30 timesteps
+    (validate_parity_mcts: K1, K2, K4, K5); every row within 0.05 dB of
+    the oracle, the wall time of each side per mode;
   * trace: ``torch.profiler`` (``utils/profiling.py``) over one train step
     at B=48, one ADMM iteration at B=63 and at B=1, one search round of 16
     trees on each backend and one served policy batch of 16: device ms,
@@ -142,6 +150,10 @@ GATHER_IMAGES, GATHER_REPEATS = 4096, 20  # native_gather's states, runs
 TP_WARMUP_STEPS, TP_TIMED_STEPS = 2, 10   # train_tp's timing
 TP_BATCHES = 4                         # train_tp's seeded batches
 DRYRUN_RANKS = 4                       # a mesh of data 2 x model 2
+# The parity harness's selftest (tools/validate_parity.py): eval and flex on
+# the reference's 7 slices a directory, the search on 2, 30 timesteps each.
+PARITY_EVAL_SLICES, PARITY_MCTS_SLICES = 7, 2
+PARITY_ITERATIONS, PARITY_FLEX_RTG = 8, 3.0
 TRAIN_BATCH, TRAIN_T = 48, 6           # TrainerConfig's batch, 18 tokens
 TRAIN_STEPS, TRAIN_EPOCHS = 25, 2      # batches an epoch, epochs
 H100_F32_FLOPS = 67e12                 # float32 outside the tensor cores
@@ -2133,6 +2145,39 @@ def phase_dryrun(torch):
     return paths
 
 
+def phase_validate_parity(torch, dev, tmp, kernels):
+    """The parity harness's ``--selftest`` with the port on ``dev``: eval
+    and flex, then the search, each from launch counts of zero. Returns the
+    paths validate_parity_eval and validate_parity_mcts. A failing row
+    fails the run."""
+    from dt4image_restoration_tpu_torch.tools import validate_parity
+    runs = {
+        "validate_parity_eval": [
+            "--modes", "eval", "flex", "--limit", str(PARITY_EVAL_SLICES),
+            "--flex_rtgs", str(PARITY_FLEX_RTG)],
+        "validate_parity_mcts": [
+            "--modes", "mcts", "--limit", str(PARITY_MCTS_SLICES),
+            "--iterations", str(PARITY_ITERATIONS)]}
+    paths, rows, printed = {}, [], io.StringIO()
+    for path, argv in runs.items():
+        report = os.path.join(tmp, f"{path}.json")
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(printed):
+            rc = validate_parity.main(
+                ["--selftest", "--device", str(dev), "--max_timesteps", "30",
+                 "--json_out", report] + argv)
+        paths[path] = kernels.launch_counts()
+        with open(report) as f:
+            rows += json.load(f)["rows"]
+        if rc != 0:
+            print(printed.getvalue(), file=sys.stderr)
+            raise AssertionError(f"{path}: a row failed: {rows}")
+    emit({"phase": "validate_parity", "nvidia_smi": nvidia_smi(),
+          "rows": [{k: v for k, v in r.items() if k != "dir"}
+                   for r in rows], "paths": paths})
+    return paths
+
+
 def phase_trace(torch, dev, ckpt_dir, tmp, dirs):
     """One train step (B=48), one ADMM iteration at B=63 and at B=1 and one
     served policy batch (B=16) under ``torch.profiler``, each region
@@ -2262,6 +2307,7 @@ def main() -> int:
         phase_native_gather(torch)
         paths["train_tp"] = phase_train_tp(torch, dev, tmp)
         paths.update(phase_dryrun(torch))
+        paths.update(phase_validate_parity(torch, dev, tmp, kernels))
         phase_trace(torch, dev, ckpt_dir, tmp, dirs)
     emit({"phase": "launches", "paths": paths})
     for path in ("train", "train_tp", "dryrun_train"):
@@ -2294,7 +2340,10 @@ def main() -> int:
                        ("mesh_serve_fixed", ("conv_block", "kspace")),
                        ("dryrun_eval", ("conv_block", "kspace",
                                         "dt_decode")),
-                       ("dryrun_mcts", search)):
+                       ("dryrun_mcts", search),
+                       ("validate_parity_eval", ("conv_block", "kspace",
+                                                 "dt_decode")),
+                       ("validate_parity_mcts", search)):
         missing = [k for k in want if paths[path][k] <= 0]
         if missing:
             raise AssertionError(f"the {path} path launched no {missing}")

@@ -1067,3 +1067,23 @@ def test_mesh_copies_cpu_models_with_packed_caches_to_card(dev, tmp_path):
     np.testing.assert_array_equal(got["episode_len"], want["episode_len"])
     np.testing.assert_allclose(got["reward"], want["reward"], rtol=0,
                                atol=0.01)
+
+
+def test_validate_parity_selftest_on_card(dev, capsys):
+    """The parity harness's ``--selftest`` with the port on the card: every
+    row within 0.05 dB of the oracle, the fused policy's kernels (K1, K2,
+    K3) launched by eval and flex, the per-op policy's (K1, K2, K4, K5) by
+    the search."""
+    from dt4image_restoration_tpu_torch.tools import validate_parity
+    small = ["--selftest", "--device", "cuda", "--limit", "2",
+             "--max_timesteps", "8", "--iterations", "2", "--flex_rtgs", "3"]
+    for modes, want in ((["eval", "flex"], ("conv_block", "kspace",
+                                            "dt_decode")),
+                        (["mcts"], ("conv_block", "kspace", "attention",
+                                    "layernorm"))):
+        kernels.reset_launch_counts()
+        rc = validate_parity.main(small + ["--modes", *modes])
+        counts = kernels.launch_counts()
+        out = capsys.readouterr().out
+        assert rc == 0 and "Overall: PASS" in out, out
+        assert all(counts[k] > 0 for k in want), (modes, counts)

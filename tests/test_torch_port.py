@@ -35,8 +35,11 @@ PORT_MODULES = [
     "dt4image_restoration_tpu_torch.tools",
     "dt4image_restoration_tpu_torch.tools.export_checkpoint",
     "dt4image_restoration_tpu_torch.tools.make_dataset",
+    "dt4image_restoration_tpu_torch.tools.validate_parity",
     "dt4image_restoration_tpu_torch.utils.convert",
     "dt4image_restoration_tpu_torch.utils.loaders",
+    "dt4image_restoration_tpu_torch.utils.torch_oracle",
+    "dt4image_restoration_tpu_torch.utils.torch_reference",
 ]
 
 
@@ -85,7 +88,7 @@ def test_port_imports_no_jax():
 @pytest.mark.parametrize("entry", ["reset", "loader", "evaluator", "env",
                                    "search", "arniqa", "device_search",
                                    "service", "record", "rollout_expert",
-                                   "make_dataset"])
+                                   "make_dataset", "validate_parity"])
 def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from dt4image_restoration_tpu_torch.config import MCTSConfig, ModelConfig
@@ -133,6 +136,10 @@ def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, entry):
             from dt4image_restoration_tpu_torch.tools import make_dataset
             make_dataset.main(["--out", str(tmp_path / "synth"),
                                "--n_traj", "1"])
+        elif entry == "validate_parity":
+            from dt4image_restoration_tpu_torch.tools import validate_parity
+            # Raises before a checkpoint is loaded or the oracle runs.
+            validate_parity.main(["--selftest", "--device", "cuda"])
         else:
             PnPEnv(UNetDenoiser(8)).reset(make_mat_record(size=16))
 
