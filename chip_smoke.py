@@ -85,6 +85,15 @@ prints one JSON line per phase. The paths:
   * unet_modes: one denoiser forward at B=63 on 128x128 slices in every
     ``--unet_packed`` mode x dtype: device ms, and the error against the
     direct float32 forward;
+  * bench: the port's headline benchmark (``python -m
+    dt4image_restoration_tpu_torch.bench``) in-process at full width (128²,
+    30 iterations, every U-Net mode in both dtypes at B=1 and B=16, the
+    A/B rounds, PSNR gates and the torch CPU baseline; its JSON line is
+    the phase's), then the knee's B=128 point in direct, pallas and
+    pallas_bf16 (the variants that run K1 and the bfloat16 K1) once with 2
+    repeats;
+    launch paths bench (its float32 variants' timed one-slice windows: K1,
+    K2) and bench_bf16 (the bfloat16 ones': the bfloat16 K1, K2);
   * eval_bf16: the eval path in bfloat16 (``--dtype bfloat16``, U-Net mode
     ``pallas``: the bfloat16 K1, K2, K3) against the float32 eval and, on
     two slices, against the CPU;
@@ -94,9 +103,9 @@ prints one JSON line per phase. The paths:
     one's).
 
 K1 is timed at the batches of these paths (1, 16, 63, 96 and 128 slices;
-K2 at 1, 63 and 128), K3
+K2 at 1, 16, 63 and 128), K3
 at one slice and at 63, both bounded by the 3xTF32 tensor-core rate; K1 in
-bfloat16 at 1, 16, 63 and 96 slices against the dense bfloat16 rate and
+bfloat16 at 1, 16, 63, 96 and 128 slices against the dense bfloat16 rate and
 cuDNN's bfloat16 conv chain, and against the float32 K1; K3 is
 also held against a chain of PyTorch's own calls for the same stack
 (``F.layer_norm``, ``F.linear``, ``F.scaled_dot_product_attention``,
@@ -106,8 +115,12 @@ views the per-op forward hands it, at 18 tokens and at 90
 at the search's shape eagerly and from a CUDA graph and counts the kernels
 it runs with ``torch.profiler``. The run fails if the build of K1 (either
 dtype) or K3 spills registers, or if the bfloat16 K1's SASS shows no wgmma
-(HGMMA) or cannot be read. Launches are counted per path, from zero just
-before it to just after it; a bfloat16 path that launches the float32 K1,
+(HGMMA) or cannot be read. The device line is preceded by the driver
+version, the uncorrected volatile ECC count and nvcc's release line; each
+K1 row (both dtypes) launches the kernel twice on its input and fails if
+the two outputs differ bit for bit (the kernels use no atomics), and every
+kernel row reports the share of its outputs off the plain version.
+Launches are counted per path, from zero just before it to just after it; a bfloat16 path that launches the float32 K1,
 or a float32 path the bfloat16 one, fails the run.
 The line before the last is the kernel summary; the last line is the device
 summary. Any failure ends the run with a traceback and a non-zero exit
@@ -141,6 +154,12 @@ SERVE_RTG, SERVE_TASK = 0.6, 2
 EXPANSION_BATCH = 96                   # the search's 6-slot expansion
 RECORD_BATCH, RECORD_EP_LEN = 128, 8    # make_dataset's chunk, --ep_len
 ROLLOUT_REPEATS = 20                   # one-slice rollouts for a median
+BENCH_REPEATS = 6                      # the bench phase's one-slice runs
+BENCH_KNEE_REPEATS = 2                 # its B=128 knee rollouts
+# The bench phase's knee variants: those that run K1 and the bfloat16 K1.
+# The Winograd candidates launch no kernel of the port; the standalone bench
+# times them.
+BENCH_KNEE_VARIANTS = ("direct", "pallas", "pallas_bf16")
 MESH_SEARCH_ROUNDS = 3                 # the mesh phase's searches
 MESH_EVAL_DB = 0.01                    # sharded eval against one shard
 SEARCH_DB = 0.05                       # the search band (PARITY.md)
@@ -301,15 +320,40 @@ def max_errors(got, ref):
 
 def nvidia_smi() -> str:
     """The card's name and power limit, as nvidia-smi reports them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    from dt4image_restoration_tpu_torch.bench import nvidia_smi as smi
+    return smi()
+
+
+def driver_readings(kernels_build) -> dict:
+    """The driver version, the uncorrected volatile ECC count and nvcc's
+    release line: what tells one machine from another if a kernel's output
+    goes wrong on one of them. A failure to read is reported, not
+    raised."""
+    def first_line(cmd, containing=""):
+        try:
+            r = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=60)
+        except (OSError, subprocess.SubprocessError) as e:
+            return f"unread: {e!r}"
+        return next((ln.strip() for ln in (r.stdout + r.stderr).splitlines()
+                     if containing in ln), f"unread: rc {r.returncode}")
+
+    try:
+        nvcc = first_line([kernels_build._nvcc(), "--version"], "release")
+    except RuntimeError as e:          # no nvcc: the build fails next
+        nvcc = f"unread: {e!r}"
+    return {"driver_ecc": first_line(
+        ["nvidia-smi", "--query-gpu=driver_version,"
+         "ecc.errors.uncorrected.volatile.total", "--format=csv,noheader"]),
+        "nvcc": nvcc}
 
 
 def phase_device(torch, kernels_build):
     smi = nvidia_smi()
     print(smi, flush=True)
+    readings = driver_readings(kernels_build)
+    print(f"driver_version, ecc.errors.uncorrected.volatile.total: "
+          f"{readings['driver_ecc']}; nvcc: {readings['nvcc']}", flush=True)
     build_s = kernels_build.build()
     ptxas = {name: [ln.strip() for ln in
                     kernels_build.build_log(name).splitlines()
@@ -317,7 +361,7 @@ def phase_device(torch, kernels_build):
              for name in kernels_build.KERNEL_SOURCES}
     sass = {name: sass_counts(kernels_build.library_path(name))
             for name in TENSOR_CORE_KERNELS}
-    emit({"phase": "device", "nvidia_smi": smi,
+    emit({"phase": "device", "nvidia_smi": smi, **readings,
           "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s, "ptxas": ptxas,
@@ -371,9 +415,12 @@ def phase_kernels(torch, dev):
         if peak_name and bound_by == "operations":
             bound_by = f"operations ({peak_name})"
         tol = TOLERANCE[kernel] if tolerance is None else tolerance
+        # Outputs off the plain version by more than the tolerance (NaN
+        # counts as off).
+        wrong = float((~((got - ref).abs() <= tol)).float().mean())
         row = {"phase": "kernel", "kernel": kernel, "shape": shape,
                "max_abs_err": abs_err, "max_rel_err": rel_err,
-               "tolerance": tol, "kernel_ms": ms,
+               "tolerance": tol, "wrong_share": wrong, "kernel_ms": ms,
                "call_ms": call_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "flops": flops, "bytes": nbytes,
@@ -383,8 +430,19 @@ def phase_kernels(torch, dev):
         emit(row)
         if not abs_err <= tol:
             raise AssertionError(f"{kernel} {shape}: max abs error {abs_err} "
-                                 f"over {tol}")
+                                 f"over {tol}, {100 * wrong:.2f} % of the "
+                                 "outputs off")
         rows.append(row)
+
+    def require_equal(kernel, shape, a, b):
+        """K1 uses no atomics and a fixed order of products: two launches
+        on one input must agree bit for bit, or the kernel races or the
+        machine is at fault."""
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{kernel} {shape}: two launches on the same input differ "
+                f"(max {float((a.float() - b.float()).abs().max())}, "
+                f"{100 * float((a != b).float().mean()):.2f} % of outputs)")
 
     # K1 at the U-Net's two full-resolution blocks, at the batches of the
     # paths: one slice, the search's rollouts, the evaluation batch, the
@@ -396,6 +454,7 @@ def phase_kernels(torch, dev):
                   RECORD_BATCH):
             x = torch.rand((b, cin, 128, 128), generator=gen, device=dev)
             got = k1.conv_block(x, packed)
+            again = k1.conv_block(x, packed)
             ref = k1.conv_block_plain(x, packed)
 
             def library(x=x, block=block):
@@ -415,11 +474,13 @@ def phase_kernels(torch, dev):
                    time_ms(torch, lambda: k1.conv_block_plain(x, packed),
                            iters),
                    time_ms(torch, library, iters), flops, nbytes,
-                   peak=H100_3XTF32_FLOPS, peak_name="3xTF32")
+                   peak=H100_3XTF32_FLOPS, peak_name="3xTF32",
+                   repeat_bit_equal=bool(torch.equal(got, again)))
+            require_equal("conv_block", f"{name} B={b}", got, again)
 
     # K1 in bfloat16 at the same blocks, at the batches of the bfloat16
-    # paths: one slice, the search's rollouts, the evaluation batch and the
-    # search's expansion. The
+    # paths: one slice, the search's rollouts, the evaluation batch, the
+    # search's expansion and the bench's knee. The
     # kernel's device time from a CUDA graph, the eager call's from CUDA
     # events; cuDNN's bfloat16 conv chain as the library call. Each
     # input is a float32 draw rounded to bfloat16, so the float32 K1 on
@@ -432,10 +493,12 @@ def phase_kernels(torch, dev):
             ("inc", unet16.net.inc, unet.net.inc, 2),
             ("up4", unet16.net.up4, unet.net.up4, 96)):
         packed, packed32 = block.packed_weights(), block32.packed_weights()
-        for b in (1, SEARCH_BATCH, EVAL_BATCH, EXPANSION_BATCH):
+        for b in (1, SEARCH_BATCH, EVAL_BATCH, EXPANSION_BATCH,
+                  RECORD_BATCH):
             x32 = torch.rand((b, cin, 128, 128), generator=gen, device=dev)
             x = x32.to(torch.bfloat16)
             got = k1.conv_block(x, packed)
+            again = k1.conv_block(x, packed)
             ref = k1.conv_block_plain(x, packed)
             f32 = k1.conv_block(x32, packed32)
             off = (got.float() - f32).abs()
@@ -474,13 +537,15 @@ def phase_kernels(torch, dev):
                    peak=peak16, peak_name="bf16",
                    tolerance=BF16_STEPS * float(ref.float().abs().max()),
                    max_abs_err_vs_f32=vs_f32,
-                   vs_f32_band=list(BF16_VS_F32))
+                   vs_f32_band=list(BF16_VS_F32),
+                   repeat_bit_equal=bool(torch.equal(got, again)))
+            require_equal("conv_block_bf16", f"{name} B={b}", got, again)
 
     # K2 on the k-space of 128x128 slices. K2, K4 and K5 take microseconds,
     # less than the wrapper's host cost per call: their kernel_ms, plain_ms
     # and library_ms are device times from CUDA graphs, and call_ms is the
     # eager time per wrapper call.
-    for b in (1, EVAL_BATCH, RECORD_BATCH):
+    for b in (1, SEARCH_BATCH, EVAL_BATCH, RECORD_BATCH):
         shape = (b, 1, 128, 128)
         z = torch.complex(torch.randn(shape, generator=gen, device=dev),
                           torch.randn(shape, generator=gen, device=dev)) * 30
@@ -1467,6 +1532,36 @@ def phase_unet_modes(torch, dev):
     return rows
 
 
+def phase_bench(torch, dev):
+    """The port's headline benchmark (``dt4image_restoration_tpu_torch/
+    bench.py``) in-process at full width with the knee skipped, then the
+    knee's B=128 point in BENCH_KNEE_VARIANTS once with BENCH_KNEE_REPEATS
+    rollouts each; the bench's JSON line, with the knee's numbers added, is
+    the phase's line. Returns the launch paths bench (the float32
+    variants' timed one-slice windows) and bench_bf16 (the bfloat16
+    ones'). A missed gate fails the run."""
+    from dt4image_restoration_tpu_torch import bench
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = bench.main(["--device", str(dev), "--knee", "none",
+                         "--repeats", str(BENCH_REPEATS)])
+    line = json.loads(printed.getvalue().strip().splitlines()[-1])
+    knee = bench.Bench(dev, variants=BENCH_KNEE_VARIANTS)
+    knee.knee((bench.PALLAS_KNEE_BATCH,), repeats=BENCH_KNEE_REPEATS)
+    emit({"phase": "bench", "nvidia_smi": nvidia_smi(), **line,
+          "knee_candidates": knee.extras})
+    if rc != 0 or knee.failed:
+        raise AssertionError(f"the bench exited {rc}; knee gates missed: "
+                             f"{knee.failed}")
+    paths = {"bench": {}, "bench_bf16": {}}
+    for name, counts in line["extras"]["launches"].items():
+        path = paths["bench" if bench.VARIANTS[name][1] == "float32"
+                     else "bench_bf16"]
+        for k, n in counts.items():
+            path[k] = path.get(k, 0) + n
+    return paths
+
+
 def phase_arniqa(torch, dev, dirs):
     """ARNIQA (random hub-layout weights, seed 0) scores of 16 slices on
     the card and on the CPU, and on the card in bfloat16 (the ``mcts``
@@ -2301,6 +2396,7 @@ def main() -> int:
         paths["mcts_bf16"] = phase_mcts_bf16(torch, dev, ckpt_dir, dirs,
                                              kernels)
         phase_unet_modes(torch, dev)
+        paths.update(phase_bench(torch, dev))
         phase_arniqa(torch, dev, dirs)
         paths.update(phase_serve(torch, dev, ckpt_dir, kernels))
         paths["train"] = phase_train(torch, dev, tmp, kernels)
@@ -2343,7 +2439,9 @@ def main() -> int:
                        ("dryrun_mcts", search),
                        ("validate_parity_eval", ("conv_block", "kspace",
                                                  "dt_decode")),
-                       ("validate_parity_mcts", search)):
+                       ("validate_parity_mcts", search),
+                       ("bench", ("conv_block", "kspace")),
+                       ("bench_bf16", ("conv_block_bf16", "kspace"))):
         missing = [k for k in want if paths[path][k] <= 0]
         if missing:
             raise AssertionError(f"the {path} path launched no {missing}")

@@ -111,15 +111,16 @@ def torch_admm_rollout(sd, mat: Mapping[str, np.ndarray], mu: float,
         t = torch.fft.ifftn(t, dim=(-2, -1), norm="ortho")
         return torch.fft.fftshift(t, dim=(-2, -1))
 
+    s = np.asarray(mat["mask"]).shape[-1]     # square slices, 128 in use
     x0 = torch.from_numpy(np.asarray(mat["x0"], np.float32))
-    x = torch.view_as_complex(x0).reshape(-1, 1, 128, 128)
+    x = torch.view_as_complex(x0).reshape(-1, 1, s, s)
     y0 = torch.view_as_complex(
         torch.from_numpy(np.asarray(mat["y0"], np.float32))).reshape(
-        -1, 1, 128, 128)
+        -1, 1, s, s)
     mask = torch.from_numpy(np.asarray(mat["mask"])).reshape(
-        -1, 1, 128, 128).bool()
+        -1, 1, s, s).bool()
     gt = torch.from_numpy(np.asarray(mat["gt"], np.float32)).reshape(
-        -1, 1, 128, 128)
+        -1, 1, s, s)
 
     z = x.clone()
     u = torch.zeros_like(x)

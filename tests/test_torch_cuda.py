@@ -1087,3 +1087,28 @@ def test_validate_parity_selftest_on_card(dev, capsys):
         out = capsys.readouterr().out
         assert rc == 0 and "Overall: PASS" in out, out
         assert all(counts[k] > 0 for k in want), (modes, counts)
+
+
+def test_bench_launches_each_dtypes_kernels_on_card(dev, capsys):
+    """The port's bench at full width, 3 iterations, no knee: every gate
+    passes; ``pallas`` launches K1 and K2, ``pallas_bf16`` the bfloat16 K1
+    and K2, and no variant launches the other dtype's K1."""
+    import json
+
+    from dt4image_restoration_tpu_torch import bench
+    rc = bench.main(["--size", "128", "--iters", "3", "--repeats", "2",
+                     "--knee", "none"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0, line
+    ex = line["extras"]
+    assert all(v for k, v in ex.items() if k.endswith("_ok")), ex
+    assert ex["platform"] == "gpu"
+    launches = ex["launches"]
+    assert launches["pallas"]["conv_block"] > 0
+    assert launches["pallas"]["kspace"] > 0
+    assert launches["pallas_bf16"]["conv_block_bf16"] > 0
+    assert launches["pallas_bf16"]["kspace"] > 0
+    for name, counts in launches.items():
+        other = "conv_block" if bench.VARIANTS[name][1] == "bfloat16" \
+            else "conv_block_bf16"
+        assert counts[other] == 0, (name, counts)

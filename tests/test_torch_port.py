@@ -19,6 +19,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "dt4image_restoration_tpu_torch",
     "dt4image_restoration_tpu_torch.__main__",
+    "dt4image_restoration_tpu_torch.bench",
     "dt4image_restoration_tpu_torch.config",
     "dt4image_restoration_tpu_torch.data",
     "dt4image_restoration_tpu_torch.data.expert",
