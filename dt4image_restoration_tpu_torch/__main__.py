@@ -43,6 +43,10 @@ writes ``model_<epoch>.pt`` in the reference's layout (which ``eval
 --checkpoint`` reads) and ``state_latest.pt`` (``--resume``). Under
 ``torchrun`` it trains data-parallel, one process per device, with
 ``--batch_size`` per process.
+
+With ``DT4IR_TRACE_DIR`` set to a directory, the verb runs under
+``torch.profiler`` and its Chrome trace is written there as ``trace.json``
+(``utils/profiling.py:trace_if_enabled``).
 """
 from __future__ import annotations
 
@@ -54,6 +58,7 @@ import sys
 
 from .config import EVAL_DIR_TOKENS
 from .models.unet import UNET_MODES
+from .utils.profiling import trace_if_enabled
 
 EVAL_DIRS_9 = [f"evaluation/image_dir/vanilla/{t}/" for t in EVAL_DIR_TOKENS]
 EVAL_DIRS_6 = EVAL_DIRS_9[:6]
@@ -423,12 +428,13 @@ def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
     args.device = _device_flags(parser, args)
-    if args.mode == "train":
-        _train(args)
-    elif args.mode == "mcts":
-        _search(args)
-    else:
-        _evaluate(args)
+    with trace_if_enabled():
+        if args.mode == "train":
+            _train(args)
+        elif args.mode == "mcts":
+            _search(args)
+        else:
+            _evaluate(args)
 
 
 if __name__ == "__main__":

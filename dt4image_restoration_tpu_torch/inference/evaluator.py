@@ -38,6 +38,8 @@ from ..training.sharding import (Mesh, gather_eval_outputs,
                                  replicate, run_sharded, shard_eval_inputs,
                                  synchronize)
 from ..utils.device import resolve_device
+from ..utils.profiling import (ENV_ADMM, EVAL_PREPARE, EVAL_ROLLOUT,
+                               EVAL_STEP, EVAL_SYNC, POLICY_STEP, annotate)
 
 
 @dataclasses.dataclass
@@ -189,6 +191,12 @@ def _where_rows(keep: torch.Tensor, new: torch.Tensor, old: torch.Tensor):
     return torch.where(keep.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
 
 
+def _host_bool(x: torch.Tensor) -> bool:
+    """``bool(x)``: a read of the device that waits for it, in its span."""
+    with annotate(EVAL_SYNC):
+        return bool(x)
+
+
 @torch.no_grad()
 def greedy_rollout(dt_apply: Callable, denoise: Callable, cfg: ModelConfig,
                    env_state: CSMRIState, bufs: EvalBuffers,
@@ -222,42 +230,47 @@ def greedy_rollout(dt_apply: Callable, denoise: Callable, cfg: ModelConfig,
     ep_len = torch.full((b,), max_timesteps, dtype=torch.long, device=dev)
 
     for t in range(max_timesteps + 1):
-        started = t >= start_time
-        if not bool(started.any()):
-            continue  # every update below is masked by `started`
-        stepped = admm_step(denoise, env_state, action_dict)
-        env_state = CSMRIState(**{
-            f.name: _where_rows(started, getattr(stepped, f.name),
-                                getattr(env_state, f.name))
-            for f in dataclasses.fields(CSMRIState)})
-        finished_now = (env_state.done | (t == max_timesteps)) & started
-        ep_len = torch.where(finished_now & ~finished,
-                             torch.full_like(ep_len, t), ep_len)
-        finished = finished | finished_now
-        live = ~finished & started
-        if not bool(live.any()):
-            # Every buffer write and policy output below is masked by
-            # `live`; with no live image the step changes nothing.
-            if bool(finished.all()):
-                break
-            continue
+        with annotate(EVAL_STEP):
+            started = t >= start_time
+            if not _host_bool(started.any()):
+                continue  # every update below is masked by `started`
+            with annotate(ENV_ADMM):
+                stepped = admm_step(denoise, env_state, action_dict)
+                env_state = CSMRIState(**{
+                    f.name: _where_rows(started, getattr(stepped, f.name),
+                                        getattr(env_state, f.name))
+                    for f in dataclasses.fields(CSMRIState)})
+            finished_now = (env_state.done | (t == max_timesteps)) & started
+            ep_len = torch.where(finished_now & ~finished,
+                                 torch.full_like(ep_len, t), ep_len)
+            finished = finished | finished_now
+            live = ~finished & started
+            if not _host_bool(live.any()):
+                # Every buffer write and policy output below is masked by
+                # `live`; with no live image the step changes nothing.
+                if _host_bool(finished.all()):
+                    break
+                continue
 
-        tw = min(t, max_timesteps - 1)
-        ob = get_policy_ob(env_state)
-        bufs.states[:, tw] = _where_rows(live, ob, bufs.states[:, tw])
-        bufs.rtg[:, tw] = _where_rows(live, pred_rtg[:, None],
-                                      bufs.rtg[:, tw])
-        if cached:
-            bufs.state_embs[:, tw] = _where_rows(
-                live, encode(ob), bufs.state_embs[:, tw])
+            with annotate(POLICY_STEP):
+                tw = min(t, max_timesteps - 1)
+                ob = get_policy_ob(env_state)
+                bufs.states[:, tw] = _where_rows(live, ob,
+                                                 bufs.states[:, tw])
+                bufs.rtg[:, tw] = _where_rows(live, pred_rtg[:, None],
+                                              bufs.rtg[:, tw])
+                if cached:
+                    bufs.state_embs[:, tw] = _where_rows(
+                        live, encode(ob), bufs.state_embs[:, tw])
 
-        old_actions = bufs.actions
-        _, new_dict, new_rtg, bufs = policy_step(bufs, t)
-        bufs = bufs.replace(actions=_where_rows(live, bufs.actions,
-                                                old_actions))
-        action_dict = {k: torch.where(live, new_dict[k], action_dict[k])
-                       for k in action_dict}
-        pred_rtg = torch.where(live, new_rtg, pred_rtg)
+                old_actions = bufs.actions
+                _, new_dict, new_rtg, bufs = policy_step(bufs, t)
+                bufs = bufs.replace(actions=_where_rows(live, bufs.actions,
+                                                        old_actions))
+                action_dict = {k: torch.where(live, new_dict[k],
+                                              action_dict[k])
+                               for k in action_dict}
+                pred_rtg = torch.where(live, new_rtg, pred_rtg)
 
     return env_state, compute_reward(env_state), ep_len, bufs
 
@@ -340,14 +353,15 @@ class Evaluator:
         if self.cached_encoder:
             encode = make_state_encode(dt)
             dt_embed_apply = make_dt_embed_apply(dt_apply)
-        old_reward = compute_reward(env_state)
-        bufs, _, action_dict, pred_rtg = initial_policy_setup(
-            dt_apply, self.cfg, policy_x0, rtg0, task, self.max_timesteps,
-            encode=encode)
-        final, reward, ep_len, _ = greedy_rollout(
-            dt_apply, denoise, self.cfg, env_state, bufs, action_dict,
-            pred_rtg, self.max_timesteps, encode=encode,
-            dt_embed_apply=dt_embed_apply)
+        with annotate(EVAL_ROLLOUT):
+            old_reward = compute_reward(env_state)
+            bufs, _, action_dict, pred_rtg = initial_policy_setup(
+                dt_apply, self.cfg, policy_x0, rtg0, task,
+                self.max_timesteps, encode=encode)
+            final, reward, ep_len, _ = greedy_rollout(
+                dt_apply, denoise, self.cfg, env_state, bufs, action_dict,
+                pred_rtg, self.max_timesteps, encode=encode,
+                dt_embed_apply=dt_embed_apply)
         return final, reward[:, 0], old_reward[:, 0], ep_len
 
     @torch.no_grad()
@@ -377,12 +391,14 @@ class Evaluator:
                 [np.asarray(r[0][i], np.float32 if i < 3 else np.int64)
                  .reshape(-1) for r in records]))
 
-        inputs = (stack(0), stack(1)[:, 0], stack(3)[:, 0])
-        mats = {k: np.concatenate([np.asarray(r[1][k]) for r in records])
-                for k in ("x0", "y0", "mask", "gt")}
-        shard_inputs = shard_eval_inputs(
-            inputs + (reset_from_mat(mats, device="cpu"),), self.mesh,
-            device=self.device)
+        with annotate(EVAL_PREPARE):
+            inputs = (stack(0), stack(1)[:, 0], stack(3)[:, 0])
+            mats = {k: np.concatenate([np.asarray(r[1][k])
+                                       for r in records])
+                    for k in ("x0", "y0", "mask", "gt")}
+            shard_inputs = shard_eval_inputs(
+                inputs + (reset_from_mat(mats, device="cpu"),), self.mesh,
+                device=self.device)
         devices = [dev for dev, _, _ in self._shards]
         synchronize(devices)
         t0 = _time.perf_counter()

@@ -41,6 +41,7 @@ from ..ops.image import (bilinear_upsample_2x, depth_to_space,
 from ..ops.kernels.conv_block import (PackedConvBlock, conv_block,
                                       pack_conv_block)
 from ..ops.winograd import winograd_apply, winograd_weights
+from ..utils.profiling import UNET, annotate
 from .precision import compute_dtype, conv2d
 
 NEGATIVE_SLOPE = 0.2
@@ -225,11 +226,12 @@ class UNetDenoiser(nn.Module):
                         packed=packed)
 
     def forward(self, x: torch.Tensor, sigma) -> torch.Tensor:
-        b, _, h, w = x.shape
-        sigma = torch.as_tensor(sigma, dtype=x.dtype, device=x.device)
-        sigma_map = sigma.reshape(-1, 1, 1, 1).expand(b, 1, h, w)
-        return torch.clamp(self.net(torch.cat([x, sigma_map], dim=1)),
-                           0.0, 1.0)
+        with annotate(UNET):
+            b, _, h, w = x.shape
+            sigma = torch.as_tensor(sigma, dtype=x.dtype, device=x.device)
+            sigma_map = sigma.reshape(-1, 1, 1, 1).expand(b, 1, h, w)
+            return torch.clamp(self.net(torch.cat([x, sigma_map], dim=1)),
+                               0.0, 1.0)
 
 
 def random_unet_state_dict(seed: int = 0, base_channels: int = 32

@@ -42,6 +42,9 @@ from .models.decision_transformer import (DecisionTransformer,
 from .training.sharding import (Mesh, process_count, replicate,
                                 run_sharded, shard_eval_inputs)
 from .utils.device import resolve_device
+from .utils.profiling import (SERVE_FILL, SERVE_LAUNCH, SERVE_PERMIT,
+                              SERVE_RESOLVE, SERVE_SETTLE, SERVE_WAIT,
+                              annotate)
 
 
 class ServiceOverloaded(RuntimeError):
@@ -336,19 +339,21 @@ class RestorationService:
     def _collect(self):
         items = []
         try:
-            items.append(self._queue.get(timeout=0.05))
+            with annotate(SERVE_WAIT):
+                items.append(self._queue.get(timeout=0.05))
         except queue.Empty:
             return items
         # One window from the FIRST item, not a timeout per item.
         deadline = time.monotonic() + self._fill_window_s()
-        while len(items) < self.batch_size:
-            remaining = deadline - time.monotonic()
-            if remaining <= 0:
-                break
-            try:
-                items.append(self._queue.get(timeout=remaining))
-            except queue.Empty:
-                break
+        with annotate(SERVE_FILL):
+            while len(items) < self.batch_size:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    items.append(self._queue.get(timeout=remaining))
+                except queue.Empty:
+                    break
         return items
 
     def _loop(self) -> None:
@@ -368,9 +373,11 @@ class RestorationService:
             # Pipelined: launch here, wait on the resolver thread. The
             # resolver returns the permit once the batch settles (or it
             # is returned here if the launch fails).
-            self._inflight.acquire()
+            with annotate(SERVE_PERMIT):
+                self._inflight.acquire()
             try:
-                handle = self._dispatch_batch(requests)
+                with annotate(SERVE_LAUNCH):
+                    handle = self._dispatch_batch(requests)
             except Exception as exc:
                 self._inflight.release()
                 self._settle_batch(items, exc=exc)
@@ -379,7 +386,8 @@ class RestorationService:
             return
         t0 = time.monotonic()
         try:
-            results = self._run_batch(requests)
+            with annotate(SERVE_LAUNCH):
+                results = self._run_batch(requests)
         except Exception as exc:
             self._settle_batch(items, exc=exc)
         else:
@@ -408,26 +416,27 @@ class RestorationService:
 
     def _settle_batch(self, items, results=None, exc=None) -> None:
         """Resolve one batch's futures and update the counters."""
-        now = time.monotonic()
-        with self._stats_lock:
-            self._stats["batches"] += 1
-            self._stats["padded_slots"] += self.batch_size - len(items)
-        for i, (_, fut, t0) in enumerate(items):
-            if exc is not None:
-                _settle(fut, exc=exc)
-            else:
-                _settle(fut, results[i])
-            lat_ms = 1e3 * (now - t0)
+        with annotate(SERVE_SETTLE):
+            now = time.monotonic()
             with self._stats_lock:
-                if fut.cancelled():
-                    self._stats["cancelled"] += 1
-                elif exc is not None:
-                    self._stats["failed"] += 1
+                self._stats["batches"] += 1
+                self._stats["padded_slots"] += self.batch_size - len(items)
+            for i, (_, fut, t0) in enumerate(items):
+                if exc is not None:
+                    _settle(fut, exc=exc)
                 else:
-                    self._stats["completed"] += 1
-                    self._stats["latency_sum_ms"] += lat_ms
-                    self._stats["latency_max_ms"] = max(
-                        self._stats["latency_max_ms"], lat_ms)
+                    _settle(fut, results[i])
+                lat_ms = 1e3 * (now - t0)
+                with self._stats_lock:
+                    if fut.cancelled():
+                        self._stats["cancelled"] += 1
+                    elif exc is not None:
+                        self._stats["failed"] += 1
+                    else:
+                        self._stats["completed"] += 1
+                        self._stats["latency_sum_ms"] += lat_ms
+                        self._stats["latency_max_ms"] = max(
+                            self._stats["latency_max_ms"], lat_ms)
 
     def _run_batch(self, requests) -> list:
         if self.mode == "mcts":
@@ -544,13 +553,14 @@ class RestorationService:
     def _finalize_batch(self, handle) -> list:
         """Wait for one launched batch's copies and build its results."""
         copies, has_gt = handle
-        for _, copied in copies:
-            if copied is not None:
-                copied.synchronize()
-        images, reward, ep_len = (
-            np.concatenate([host[k].numpy() for host, _ in copies])
-            for k in range(3))
-        return [RestorationResult(
-            image=np.clip(images[i], 0.0, 1.0),
-            psnr_db=float(reward[i]) if has_gt[i] else None,
-            episode_len=int(ep_len[i])) for i in range(len(has_gt))]
+        with annotate(SERVE_RESOLVE):
+            for _, copied in copies:
+                if copied is not None:
+                    copied.synchronize()
+            images, reward, ep_len = (
+                np.concatenate([host[k].numpy() for host, _ in copies])
+                for k in range(3))
+            return [RestorationResult(
+                image=np.clip(images[i], 0.0, 1.0),
+                psnr_db=float(reward[i]) if has_gt[i] else None,
+                episode_len=int(ep_len[i])) for i in range(len(has_gt))]

@@ -6,9 +6,14 @@ Usage:
         with annotate("train_step"):
             run_workload()
 
-Both tree searches (``inference/mcts.py``, ``inference/mcts_device.py``)
-annotate each round as ``SEARCH_ROUND.format(i)``, so that one round of
-either backend can be read from a trace with :func:`region_breakdown`.
+A span costs a flag test and nothing more while no profiler runs, so the
+spans stay in the hot loops. Both tree searches (``inference/mcts.py``,
+``inference/mcts_device.py``) annotate each round as
+``SEARCH_ROUND.format(i)``, so that one round of either backend can be read
+from a trace with :func:`region_breakdown`. The evaluation loop, the ADMM
+step, the U-Net and the service annotate their work under the ``dt4ir.``
+names below; the evaluator's spans nest under ``SERVE_LAUNCH`` when the
+service runs them.
 
     timer = StepTimer(device)
     for batch in ...:
@@ -25,6 +30,7 @@ from typing import Dict, Iterable, Iterator, List, Mapping, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 TRACE_ENV_VAR = "DT4IR_TRACE_DIR"
 TRACE_FILE = "trace.json"
@@ -32,6 +38,28 @@ TRACE_FILE = "trace.json"
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # The span of round i of a tree search.
 SEARCH_ROUND = "search round {}"
+# Evaluation (inference/evaluator.py): a call's stacking and copy to the
+# device, one shard's rollout, one iteration of the greedy loop, and each
+# device-to-host read that decides the loop's control flow.
+EVAL_PREPARE = "dt4ir.eval.prepare"
+EVAL_ROLLOUT = "dt4ir.eval.rollout"
+EVAL_STEP = "dt4ir.eval.step"
+EVAL_SYNC = "dt4ir.eval.sync"
+# One ADMM iteration and its masked merge; one U-Net forward; one policy
+# step (buffer writes, state encoder, the two DT forwards, masked merges).
+ENV_ADMM = "dt4ir.env.admm"
+UNET = "dt4ir.unet"
+POLICY_STEP = "dt4ir.policy.step"
+# The service's worker: the wait for a first request, the fill window after
+# it, the wait for an in-flight permit, the launch of a batch; its resolver:
+# the wait for a batch's copies and its results, and settling the futures.
+SERVE_WAIT = "dt4ir.serve.wait"
+SERVE_FILL = "dt4ir.serve.fill"
+SERVE_PERMIT = "dt4ir.serve.permit"
+SERVE_LAUNCH = "dt4ir.serve.launch"
+SERVE_RESOLVE = "dt4ir.serve.resolve"
+SERVE_SETTLE = "dt4ir.serve.settle"
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -39,7 +67,10 @@ def trace_if_enabled(trace_dir: Optional[str] = None) -> Iterator[None]:
     """Profile the block with ``torch.profiler`` (CPU activity, and CUDA
     activity when a GPU is present) when a trace directory is given or
     DT4IR_TRACE_DIR is set, and write its Chrome trace to
-    ``<trace_dir>/trace.json``; a no-op otherwise."""
+    ``<trace_dir>/trace.json``; a no-op otherwise. Every thread of the
+    process is traced, those started before the block too (a service's
+    worker and resolver), where this PyTorch can; else the calling
+    thread and those it starts inside the block."""
     trace_dir = trace_dir or os.environ.get(TRACE_ENV_VAR)
     if not trace_dir:
         yield
@@ -48,14 +79,29 @@ def trace_if_enabled(trace_dir: Optional[str] = None) -> Iterator[None]:
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(trace_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=activities,
+                                **_all_threads()) as prof:
         yield
     prof.export_chrome_trace(os.path.join(trace_dir, TRACE_FILE))
 
 
+def _all_threads() -> Dict:
+    """``torch.profiler.profile``'s keywords that trace every thread of the
+    process; none where this PyTorch lacks the setting."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        return {"experimental_config":
+                _ExperimentalConfig(profile_all_threads=True)}
+    except (ImportError, TypeError):
+        return {}
+
+
 def annotate(name: str) -> contextlib.AbstractContextManager:
-    """A named span inside an active trace (``record_function``)."""
-    return torch.profiler.record_function(name)
+    """A named span (``record_function``) while a profiler runs; otherwise
+    one shared no-op, so that a span off costs a flag test."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def region_breakdown(events: Iterable[Mapping], region: str, top: int = 8

@@ -594,6 +594,51 @@ def test_trace_if_enabled_writes_device_trace(dev, tmp_path):
     assert 0 <= region["device_idle_share"] < 1
 
 
+def test_unet_span_holds_its_kernels_launches_on_one_clock(dev, tmp_path):
+    """The kernels launched inside a ``dt4ir.unet`` span (the launch's
+    correlation id) start after the span starts, on the trace's one clock:
+    the program's spans and the device's work can be laid side by side."""
+    import json as _json
+
+    from dt4image_restoration_tpu_torch.utils.profiling import (
+        TRACE_FILE, UNET, trace_if_enabled)
+    model = UNetDenoiser().to(dev).eval().requires_grad_(False)
+    x = torch.rand((1, 1, 128, 128), device=dev)
+    sigma = torch.full((1,), 0.05, device=dev)
+    model(x, sigma)
+    torch.cuda.synchronize()
+    with trace_if_enabled(str(tmp_path)):
+        for _ in range(2):
+            model(x, sigma)
+        torch.cuda.synchronize()
+    with open(tmp_path / TRACE_FILE) as f:
+        events = [e for e in _json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+              (e.get("pid"), e.get("tid"))) for e in events
+             if e.get("name") == UNET and e.get("cat") == "user_annotation"]
+    assert len(spans) == 2
+    launches = {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and corr:
+            launches[corr] = (float(e["ts"]), (e.get("pid"), e.get("tid")))
+    held = []
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        launch = launches.get((e.get("args") or {}).get("correlation"))
+        if launch is None:
+            continue
+        for s0, s1, th in spans:
+            if th == launch[1] and s0 <= launch[0] <= s1:
+                held.append((s0, launch[0], float(e["ts"])))
+    # Every U-Net forward launches dozens of kernels.
+    assert len(held) >= 2 * 20
+    for s0, t_launch, t_kernel in held:
+        assert s0 <= t_launch <= t_kernel
+
+
 def test_bfloat16_train_step_on_card(dev):
     """--dtype bfloat16 on the card: forward and loss under autocast, the
     loss within 2e-2 of the float32 loss (bfloat16 keeps 8 bits of
