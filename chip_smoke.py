@@ -111,7 +111,11 @@ also held against a chain of PyTorch's own calls for the same stack
 (``F.layer_norm``, ``F.linear``, ``F.scaled_dot_product_attention``,
 ``F.gelu``), timed from a CUDA graph. K4 is timed on the strided q, k, v
 views the per-op forward hands it, at 18 tokens and at 90
-(--block_size 90). The per_op_forward phase times one per-op policy forward
+(--block_size 90). K6 (the U-Net decoder's upsampling, pad and concat) is
+timed at the decoder's four levels at 1, 16 and 63 slices in both dtypes
+against its byte bound and ``F.interpolate`` with ``torch.cat``, and must
+equal its plain version bit for bit; every path that runs the U-Net
+launches it. The per_op_forward phase times one per-op policy forward
 at the search's shape eagerly and from a CUDA graph and counts the kernels
 it runs with ``torch.profiler``. The run fails if the build of K1 (either
 dtype) or K3 spills registers, or if the bfloat16 K1's SASS shows no wgmma
@@ -195,9 +199,12 @@ REPLACES = {
     "dt_decode": "dt4image_restoration_tpu/ops/pallas/transformer.py:122",
     "attention": "dt4image_restoration_tpu/ops/pallas/attention.py:39",
     "layernorm": "dt4image_restoration_tpu/ops/pallas/layernorm.py:29",
+    # No Pallas kernel: the JAX decoder's XLA interpolation matmuls.
+    "upsample_concat": "none (dt4image_restoration_tpu/ops/image.py:56)",
 }
+# K6 repeats F.interpolate's arithmetic: bit for bit, no tolerance.
 TOLERANCE = {"conv_block": 1e-4, "kspace": 1e-6, "dt_decode": 1e-4,
-             "attention": 1e-5, "layernorm": 1e-5}
+             "attention": 1e-5, "layernorm": 1e-5, "upsample_concat": 0.0}
 # K1 in bfloat16 against its plain version: both sum in float32 in another
 # order and round each layer to bfloat16, so a value near a rounding
 # boundary can come out one bfloat16 step (2^-7 relative) apart, and such a
@@ -224,7 +231,15 @@ SUMMARY_SHAPES = {
     "dt_decode": (f"B={EVAL_BATCH} T=12", f"B={EVAL_BATCH} T=18"),
     "attention": (f"B={SEARCH_BATCH} H=4 T=18 D=32",),
     "layernorm": (f"rows={SEARCH_BATCH * 18} E=128",),
+    # The four decoder levels of one U-Net call.
+    "upsample_concat": tuple(f"float32 {lv} B={EVAL_BATCH}"
+                             for lv in ("up1", "up2", "up3", "up4")),
 }
+# K6's (a, skip) planes at the U-Net decoder's levels on 128x128 slices.
+UPSAMPLE_LEVELS = {"up1": ((512, 8, 8), (256, 16, 16)),
+                   "up2": ((256, 16, 16), (128, 32, 32)),
+                   "up3": ((128, 32, 32), (64, 64, 64)),
+                   "up4": ((64, 64, 64), (32, 128, 128))}
 
 
 def emit(obj) -> None:
@@ -396,6 +411,8 @@ def phase_kernels(torch, dev):
     from dt4image_restoration_tpu_torch.ops.kernels import kspace as k2
     from dt4image_restoration_tpu_torch.ops.kernels import layernorm as k5
     from dt4image_restoration_tpu_torch.ops.kernels import transformer as k3
+    from dt4image_restoration_tpu_torch.ops.kernels import (
+        upsample_concat as k6)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     unet = UNetDenoiser().eval().requires_grad_(False)
@@ -477,6 +494,51 @@ def phase_kernels(torch, dev):
                    peak=H100_3XTF32_FLOPS, peak_name="3xTF32",
                    repeat_bit_equal=bool(torch.equal(got, again)))
             require_equal("conv_block", f"{name} B={b}", got, again)
+
+    # K6 at the decoder's four levels, at one slice, the search's rollouts
+    # and the evaluation batch, in both dtypes, against its plain version
+    # (F.interpolate, pad, torch.cat): bit for bit. kernel_ms, plain_ms and
+    # library_ms (F.interpolate and torch.cat alone, the yardstick) are
+    # device times from CUDA graphs; call_ms is the eager wrapper call.
+    for dtype in (torch.float32, torch.bfloat16):
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        for lv, (a_plane, skip_plane) in UPSAMPLE_LEVELS.items():
+            for b in (1, SEARCH_BATCH, EVAL_BATCH):
+                a = torch.randn((b, *a_plane), generator=gen,
+                                device=dev).to(dtype)
+                skip = torch.randn((b, *skip_plane), generator=gen,
+                                   device=dev).to(dtype)
+                got = k6.upsample_concat(a, skip)
+                ref = k6.upsample_concat_plain(a, skip)
+
+                def library(a=a, skip=skip):
+                    return torch.cat([skip, F.interpolate(
+                        a, scale_factor=2, mode="bilinear",
+                        align_corners=True)], dim=1)
+
+                ca, ha, wa = a_plane
+                cs, hs, ws = skip_plane
+                # Each input read once, the concat written once; 9 flops
+                # (three blends of two products and a sum) an upsampled
+                # output.
+                nbytes = a.element_size() * b * (
+                    ca * ha * wa + cs * hs * ws + (cs + ca) * hs * ws)
+                launches = 50 if b == 1 else 10
+                record("upsample_concat",
+                       f"{str(dtype)[6:]} {lv} B={b}", got.float(),
+                       ref.float(),
+                       time_graph_ms(torch, lambda: k6.upsample_concat(
+                           a, skip), launches=launches, replays=5),
+                       time_graph_ms(torch, lambda: k6.upsample_concat_plain(
+                           a, skip), launches=launches, replays=5),
+                       time_graph_ms(torch, library, launches=launches,
+                                     replays=5),
+                       9.0 * b * ca * hs * ws, float(nbytes),
+                       call_ms=time_ms(torch, lambda: k6.upsample_concat(
+                           a, skip), 50),
+                       bit_equal_share=1.0 - int(
+                           (got.view(bits) != ref.view(bits)).sum())
+                       / got.numel())
 
     # K1 in bfloat16 at the same blocks, at the batches of the bfloat16
     # paths: one slice, the search's rollouts, the evaluation batch, the
@@ -2406,42 +2468,39 @@ def main() -> int:
         paths.update(phase_validate_parity(torch, dev, tmp, kernels))
         phase_trace(torch, dev, ckpt_dir, tmp, dirs)
     emit({"phase": "launches", "paths": paths})
+    # Training runs no U-Net: none of the kernels, K6 included.
     for path in ("train", "train_tp", "dryrun_train"):
         if any(paths[path].values()):
             raise AssertionError(f"the {path} path launched kernels: "
                                  f"{paths[path]}")
-    search = ("conv_block", "kspace", "attention", "layernorm")
-    search16 = ("conv_block_bf16",) + search[1:]
-    for path, want in (("rollout", ("conv_block", "kspace")),
-                       ("eval", ("conv_block", "kspace", "dt_decode")),
-                       ("eval_bf16", ("conv_block_bf16", "kspace",
-                                      "dt_decode")),
-                       ("record", ("conv_block", "kspace")),
+    # Every path that runs the U-Net runs K6 at its decoder.
+    unet = ("conv_block", "kspace", "upsample_concat")
+    unet16 = ("conv_block_bf16",) + unet[1:]
+    search = unet + ("attention", "layernorm")
+    search16 = unet16 + ("attention", "layernorm")
+    for path, want in (("rollout", unet),
+                       ("eval", unet + ("dt_decode",)),
+                       ("eval_bf16", unet16 + ("dt_decode",)),
+                       ("record", unet),
                        ("mcts", search), ("mcts_device", search),
                        ("mcts_expand", search),
                        ("mcts_bf16", search16),
-                       ("serve_policy", ("conv_block", "kspace",
-                                         "dt_decode")),
-                       ("serve_fixed", ("conv_block", "kspace")),
+                       ("serve_policy", unet + ("dt_decode",)),
+                       ("serve_fixed", unet),
                        ("serve_mcts", search),
-                       ("mesh_one", ("conv_block", "kspace", "dt_decode")),
-                       ("mesh_eval", ("conv_block", "kspace",
-                                      "dt_decode")),
-                       ("mesh_ranks_eval", ("conv_block", "kspace",
-                                            "dt_decode")),
+                       ("mesh_one", unet + ("dt_decode",)),
+                       ("mesh_eval", unet + ("dt_decode",)),
+                       ("mesh_ranks_eval", unet + ("dt_decode",)),
                        ("mesh_ranks_search", search),
                        ("mesh_search", search),
-                       ("mesh_serve_policy", ("conv_block", "kspace",
-                                              "dt_decode")),
-                       ("mesh_serve_fixed", ("conv_block", "kspace")),
-                       ("dryrun_eval", ("conv_block", "kspace",
-                                        "dt_decode")),
+                       ("mesh_serve_policy", unet + ("dt_decode",)),
+                       ("mesh_serve_fixed", unet),
+                       ("dryrun_eval", unet + ("dt_decode",)),
                        ("dryrun_mcts", search),
-                       ("validate_parity_eval", ("conv_block", "kspace",
-                                                 "dt_decode")),
+                       ("validate_parity_eval", unet + ("dt_decode",)),
                        ("validate_parity_mcts", search),
-                       ("bench", ("conv_block", "kspace")),
-                       ("bench_bf16", ("conv_block_bf16", "kspace"))):
+                       ("bench", unet),
+                       ("bench_bf16", unet16)):
         missing = [k for k in want if paths[path][k] <= 0]
         if missing:
             raise AssertionError(f"the {path} path launched no {missing}")

@@ -3,9 +3,11 @@
 Counterpart of the JAX package's ``models/unet.py``, with the same
 semantics: encoder of 3-layer 3x3 LeakyReLU(0.2) blocks with 2x2 max-pool
 (base/2x/4x/8x/16x channels), decoder of 2x bilinear upsampling
-(align_corners=True), pad-to-match and a ``[skip, up]`` concat, a 1x1 head
-and a residual add of the image channel. ``UNetDenoiser`` adds the constant
-sigma noise-map channel and clamps the output to [0, 1].
+(align_corners=True), pad-to-match and a ``[skip, up]`` concat (one launch
+of kernel K6, :mod:`..ops.kernels.upsample_concat`, in every mode; its
+plain version on the CPU), a 1x1 head and a residual add of the image
+channel. ``UNetDenoiser`` adds the constant sigma noise-map channel and
+clamps the output to [0, 1].
 
 ``dtype`` is the compute dtype (float32 parameters): under bfloat16 the
 convs, pooling, upsampling, concats and the 1x1 head run in bfloat16, the
@@ -35,11 +37,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.image import (bilinear_upsample_2x, depth_to_space,
-                         pack_conv_bias, pack_conv_weights, repad_cells,
-                         space_to_depth, space_to_depth_shifted)
+from ..ops.image import (depth_to_space, pack_conv_bias, pack_conv_weights,
+                         repad_cells, space_to_depth, space_to_depth_shifted)
 from ..ops.kernels.conv_block import (PackedConvBlock, conv_block,
                                       pack_conv_block)
+from ..ops.kernels.upsample_concat import upsample_concat
 from ..ops.winograd import winograd_apply, winograd_weights
 from ..utils.profiling import UNET, annotate
 from .precision import compute_dtype, conv2d
@@ -130,16 +132,6 @@ class ConvBlock(nn.Module):
         return x
 
 
-def _pad_to_match(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    """Pad x1 spatially to x2's size, splitting the difference like the
-    reference decoder (a no-op for power-of-two inputs)."""
-    dy = x2.shape[-2] - x1.shape[-2]
-    dx = x2.shape[-1] - x1.shape[-1]
-    if dy == 0 and dx == 0:
-        return x1
-    return F.pad(x1, (dx // 2, dx - dx // 2, dy // 2, dy - dy // 2))
-
-
 class UNet(nn.Module):
     """2-in (image + noise map) / 1-out residual U-Net on NCHW tensors, in
     compute ``dtype``, executed in mode ``packed`` (``UNET_MODES``)."""
@@ -202,8 +194,7 @@ class UNet(nn.Module):
         x5 = self.down4(F.max_pool2d(x4, 2))
 
         def up(a, skip, block):
-            a = _pad_to_match(bilinear_upsample_2x(a), skip)
-            return block(torch.cat([skip, a], dim=1))
+            return block(upsample_concat(a.contiguous(), skip.contiguous()))
 
         y = up(x5, x4, self.up1)
         y = up(y, x3, self.up2)

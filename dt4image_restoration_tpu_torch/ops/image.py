@@ -1,7 +1,8 @@
 """Image resampling and layout utilities (counterpart of the JAX package's
 ``ops/image.py``), on NCHW tensors.
 
-``bilinear_upsample_2x`` is the U-Net decoder's upsampling. The
+``bilinear_upsample_2x`` is the U-Net decoder's upsampling (in the plain
+version of kernel K6, ``ops/kernels/upsample_concat.py``). The
 space-to-depth family runs the U-Net's ``s2d`` mode: it packs 2x2 pixel
 cells into channels, and turns a SAME 3x3 pixel conv into an exact cell
 conv (``dense``: SAME 3x3 over plain cells; ``shift``: VALID 2x2 over the

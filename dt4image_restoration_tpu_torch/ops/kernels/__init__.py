@@ -8,18 +8,20 @@ compiled on its first CUDA call (see :mod:`._build`).
     K3 transformer <- ops/pallas/transformer.py:fused_dt_decode
     K4 attention   <- ops/pallas/attention.py:fused_causal_attention
     K5 layernorm   <- ops/pallas/layernorm.py:layernorm_pallas
+    K6 upsample_concat (no TPU kernel: the U-Net decoder's upsampling, pad
+       and skip concat, which the JAX package leaves to XLA)
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from . import (attention, conv_block, conv_block_bf16, kspace, layernorm,
-               transformer)
+               transformer, upsample_concat)
 
 KERNEL_MODULES = {"conv_block": conv_block,
                   "conv_block_bf16": conv_block_bf16, "kspace": kspace,
                   "dt_decode": transformer, "attention": attention,
-                  "layernorm": layernorm}
+                  "layernorm": layernorm, "upsample_concat": upsample_concat}
 
 
 def launch_counts() -> Dict[str, int]:

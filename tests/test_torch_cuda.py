@@ -12,6 +12,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from dt4image_restoration_tpu_torch.config import MCTSConfig, ModelConfig
 from dt4image_restoration_tpu_torch.data import (EvaluationDataset,
@@ -32,6 +33,7 @@ from dt4image_restoration_tpu_torch.ops.kernels import conv_block as k1
 from dt4image_restoration_tpu_torch.ops.kernels import kspace as k2
 from dt4image_restoration_tpu_torch.ops.kernels import layernorm as k5
 from dt4image_restoration_tpu_torch.ops.kernels import transformer as k3
+from dt4image_restoration_tpu_torch.ops.kernels import upsample_concat as k6
 from dt4image_restoration_tpu_torch.utils.device import resolve_device
 
 pytestmark = pytest.mark.cuda
@@ -170,6 +172,118 @@ def test_unet_on_card_matches_cpu(dev):
     torch.cuda.synchronize()
     assert k1.launches == before + 2          # inc and up4
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-3, atol=2e-4)
+
+
+# K6's (a, skip) planes, without the batch: the U-Net decoder's four
+# levels at 128x128 (up1 to up4), an odd-sized pair (a pad border on all
+# four sides), a Ws that is not a multiple of 4, and a skip smaller than
+# the upsampled image (F.pad crops).
+K6_PLANES = {"up1": ((512, 8, 8), (256, 16, 16)),
+             "up2": ((256, 16, 16), (128, 32, 32)),
+             "up3": ((128, 32, 32), (64, 64, 64)),
+             "up4": ((64, 64, 64), (32, 128, 128)),
+             "odd": ((64, 31, 33), (32, 65, 68)),
+             "ws30": ((64, 16, 15), (32, 32, 30)),
+             "crop": ((8, 5, 6), (4, 9, 10))}
+
+
+def _interpolate_pad_cat(a, skip):
+    """The composition K6 replaces, as the U-Net ran it before."""
+    up = F.interpolate(a, scale_factor=2, mode="bilinear",
+                       align_corners=True)
+    dy, dx = skip.shape[2] - up.shape[2], skip.shape[3] - up.shape[3]
+    up = F.pad(up, (dx // 2, dx - dx // 2, dy // 2, dy - dy // 2))
+    return torch.cat([skip, up], dim=1)
+
+
+def _bits(t):
+    """The bit patterns of a float32 or bfloat16 tensor."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 16, 63])
+@pytest.mark.parametrize("planes", list(K6_PLANES))
+def test_upsample_concat_kernel_equals_interpolate_pad_cat(dev, planes, b,
+                                                            dtype):
+    """K6 against ``F.interpolate`` + pad + ``torch.cat`` on the card: the
+    same arithmetic as PyTorch's kernel, so every output bit for bit."""
+    a_plane, skip_plane = K6_PLANES[planes]
+    gen = torch.Generator(device=dev).manual_seed(b)
+    a = torch.randn((b, *a_plane), generator=gen, device=dev).to(dtype)
+    skip = torch.randn((b, *skip_plane), generator=gen, device=dev).to(dtype)
+    before = k6.launches
+    got = k6.upsample_concat(a, skip)
+    torch.cuda.synchronize()
+    assert k6.launches == before + 1
+    ref = _interpolate_pad_cat(a, skip)
+    assert got.shape == ref.shape and got.dtype == dtype
+    equal = _bits(got) == _bits(ref)
+    assert bool(equal.all()), (
+        f"bit-equal share {float(equal.float().mean())}, largest "
+        f"difference {float((got.float() - ref.float()).abs().max())}")
+
+
+def test_upsample_concat_kernel_takes_unaligned_skip(dev):
+    """A contiguous skip whose storage starts off a 16-byte boundary runs
+    the kernel's element-by-element path, with the same result."""
+    a = torch.randn((2, 8, 16, 16), device=dev)
+    skip = torch.randn(2 * 4 * 32 * 32 + 1, device=dev)[1:].view(
+        2, 4, 32, 32)
+    assert skip.is_contiguous() and skip.data_ptr() % 16
+    assert torch.equal(_bits(k6.upsample_concat(a, skip)),
+                       _bits(_interpolate_pad_cat(a, skip)))
+
+
+@pytest.mark.parametrize("case,error", [
+    ("float16", TypeError), ("mixed", TypeError),
+    ("strided_a", ValueError), ("strided_skip", ValueError),
+    ("batch", ValueError), ("ndim", ValueError)])
+def test_upsample_concat_kernel_refuses(dev, case, error):
+    a = torch.zeros((2, 8, 4, 4), device=dev)
+    skip = torch.zeros((2, 4, 8, 8), device=dev)
+    if case == "float16":
+        a, skip = a.half(), skip.half()
+    elif case == "mixed":
+        a = a.to(torch.bfloat16)
+    elif case == "strided_a":
+        a = torch.zeros((2, 8, 4, 8), device=dev)[..., ::2]
+    elif case == "strided_skip":
+        skip = torch.zeros((2, 4, 8, 8), device=dev).transpose(2, 3)
+    elif case == "batch":
+        skip = torch.zeros((3, 4, 8, 8), device=dev)
+    else:
+        a = a[0]
+    before = k6.launches
+    with pytest.raises(error):
+        k6.upsample_concat(a, skip)
+    assert k6.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["none", "s2d", "pallas", "winograd",
+                                  "winograd_deep"])
+def test_unet_forward_launches_upsample_concat_on_card(dev, monkeypatch,
+                                                        mode, dtype):
+    """Every U-Net mode launches K6 once a decoder level, four a forward,
+    and its output equals the same forward with the composition K6
+    replaced (``F.interpolate``, pad, ``torch.cat``) bit for bit."""
+    from dt4image_restoration_tpu_torch.models import unet
+    model = UNetDenoiser(dtype=dtype, packed=mode)
+    model.load_state_dict(random_unet_state_dict(0))
+    model = model.eval().requires_grad_(False).to(dev)
+    x = torch.rand((3, 1, 128, 128), device=dev)
+    sigma = torch.tensor([0.05, 0.1, 0.2], device=dev)
+    model(x, sigma)                  # packs the weights, warms cuDNN up
+    kernels.reset_launch_counts()
+    got = model(x, sigma)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["upsample_concat"] == 4
+    monkeypatch.setattr(unet, "upsample_concat", _interpolate_pad_cat)
+    kernels.reset_launch_counts()
+    ref = model(x, sigma)
+    assert kernels.launch_counts()["upsample_concat"] == 0
+    assert torch.equal(_bits(got), _bits(ref))
 
 
 @pytest.mark.parametrize("shape", [(16, 4, 18, 32), (63, 4, 18, 32),

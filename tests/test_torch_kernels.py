@@ -1,9 +1,11 @@
 """The port's kernels (K1 conv_block, K2 kspace, K3 dt_decode, K4 attention,
-K5 layernorm).
+K5 layernorm, K6 upsample_concat).
 
 On the CPU each wrapper runs its plain PyTorch version, which is held here
 against the JAX package's Pallas kernel run in interpret mode on the same
-numpy inputs, at the tolerances of tests/test_pallas.py. The CUDA kernels
+numpy inputs, at the tolerances of tests/test_pallas.py (K6, which has no
+Pallas counterpart, against the JAX U-Net decoder's upsampling, pad and
+concat). The CUDA kernels
 themselves are held against their plain versions on the card by
 tests/test_torch_cuda.py.
 """
@@ -15,12 +17,16 @@ import torch
 import torch.nn.functional as F
 
 from dt4image_restoration_tpu.config import ModelConfig as JModelConfig
+from dt4image_restoration_tpu.models.unet import (
+    _pad_to_match as j_pad_to_match)
 from dt4image_restoration_tpu.models.decision_transformer import (
     init_dt_params as j_init_dt_params)
 from dt4image_restoration_tpu.ops.pallas import (
     fused_causal_attention as j_fused_causal_attention,
     fused_conv_block as j_fused_conv_block,
     kspace_consistency_pallas, layernorm_pallas)
+from dt4image_restoration_tpu.ops.image import (
+    bilinear_upsample_2x as j_bilinear_upsample_2x)
 from dt4image_restoration_tpu.ops.pallas.transformer import (
     fused_dt_decode as j_fused_dt_decode, pack_dt_weights as j_pack)
 from dt4image_restoration_tpu_torch.config import ModelConfig
@@ -31,6 +37,7 @@ from dt4image_restoration_tpu_torch.ops.kernels import conv_block_bf16 as kb
 from dt4image_restoration_tpu_torch.ops.kernels import layernorm as k5
 from dt4image_restoration_tpu_torch.ops.kernels import kspace as k2
 from dt4image_restoration_tpu_torch.ops.kernels import transformer as k3
+from dt4image_restoration_tpu_torch.ops.kernels import upsample_concat as k6
 from dt4image_restoration_tpu_torch.models import (DecisionTransformer,
                                                    UNetDenoiser,
                                                    init_dt_params,
@@ -626,6 +633,72 @@ def test_layernorm_plain_matches_pallas(rng, shape):
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)
 
 
+# --- K6 -----------------------------------------------------------------
+
+# (a, skip) shapes: the decoder's four levels at 128x128, odd-sized levels
+# (pad borders on the bottom and the right, and on all four sides) and a Ws
+# that is not a multiple of 4.
+K6_SHAPES = [((2, 512, 8, 8), (2, 256, 16, 16)),
+             ((2, 256, 16, 16), (2, 128, 32, 32)),
+             ((1, 128, 32, 32), (1, 64, 64, 64)),
+             ((1, 64, 64, 64), (1, 32, 128, 128)),
+             ((2, 6, 4, 5), (2, 3, 9, 11)),
+             ((3, 4, 7, 3), (3, 5, 14, 6)),
+             ((1, 2, 5, 6), (1, 3, 13, 15))]
+# A skip smaller than the upsampled image: F.pad crops (the JAX pad
+# refuses it).
+K6_CROP = ((1, 2, 5, 6), (1, 3, 9, 10))
+
+
+def _k6_inputs(rng, a_shape, skip_shape, dtype=torch.float32):
+    a, skip = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dtype) for s in (a_shape, skip_shape))
+    return a, skip
+
+
+@pytest.mark.parametrize("a_shape,skip_shape", K6_SHAPES)
+def test_upsample_concat_plain_matches_jax_decoder(rng, a_shape,
+                                                   skip_shape):
+    """The plain K6 against the JAX U-Net decoder's upsampling (two
+    interpolation matmuls), pad-to-match and ``[skip, up]`` concat, NHWC."""
+    a, skip = _k6_inputs(rng, a_shape, skip_shape)
+    got = k6.upsample_concat(a, skip)
+    ja, jskip = (jnp.asarray(t.permute(0, 2, 3, 1).numpy())
+                 for t in (a, skip))
+    ref = np.asarray(jnp.concatenate(
+        [jskip, j_pad_to_match(j_bilinear_upsample_2x(ja), jskip)], -1))
+    assert got.shape == (skip_shape[0], skip_shape[1] + a_shape[1],
+                         *skip_shape[2:])
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), ref,
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("a_shape,skip_shape", K6_SHAPES + [K6_CROP])
+def test_upsample_concat_plain_equals_interpolate_pad_cat(
+        rng, a_shape, skip_shape, dtype):
+    """On the CPU the wrapper is the composition the U-Net ran before K6,
+    bit for bit: ``F.interpolate`` (align_corners), ``F.pad`` by half the
+    size difference on each side (floor first), ``torch.cat``."""
+    a, skip = _k6_inputs(rng, a_shape, skip_shape, dtype)
+    up = F.interpolate(a, scale_factor=2, mode="bilinear",
+                       align_corners=True)
+    dy, dx = (skip.shape[i] - up.shape[i] for i in (2, 3))
+    up = F.pad(up, (dx // 2, dx - dx // 2, dy // 2, dy - dy // 2))
+    ref = torch.cat([skip, up], dim=1)
+    kernels.reset_launch_counts()
+    got = k6.upsample_concat(a, skip)
+    assert got.dtype == dtype
+    assert torch.equal(got, ref)
+    assert k6.launches == 0
+
+
+def test_upsample_concat_refuses_unsupported_device():
+    a = torch.empty((1, 2, 4, 4), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        k6.upsample_concat(a, torch.empty((1, 2, 8, 8), device="meta"))
+
+
 # --- launch counts --------------------------------------------------------
 
 def test_plain_path_counts_no_launches(rng):
@@ -637,7 +710,19 @@ def test_plain_path_counts_no_launches(rng):
     k5.layernorm(x, torch.ones(8), torch.zeros(8))
     k1.fused_conv_block(torch.zeros((1, 8, 8, 2), dtype=torch.bfloat16),
                         _t(ws), _t(bs))
+    k6.upsample_concat(torch.zeros((1, 4, 3, 4)), x)
     assert kernels.launch_counts() == {"conv_block": 0,
                                        "conv_block_bf16": 0, "kspace": 0,
                                        "dt_decode": 0, "attention": 0,
-                                       "layernorm": 0}
+                                       "layernorm": 0, "upsample_concat": 0}
+
+
+def test_unet_forward_on_cpu_counts_no_launches():
+    """A U-Net forward on the CPU runs K6's plain version in every mode."""
+    x = torch.rand((1, 1, 16, 16))
+    for mode in ("none", "pallas", "winograd"):
+        model = UNetDenoiser(base_channels=4, packed=mode).eval()
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            model(x, 0.1)
+        assert not any(kernels.launch_counts().values()), mode
