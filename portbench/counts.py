@@ -1,17 +1,20 @@
 """Operations and bytes of the DT4IR models, from their published shapes.
 
 A FLOP is a multiply or an add: a product of (M, K) and (K, N) counts
-2 M K N. What implements a layer does not change its count. The U-Net is
-counted per forward of one slice: its 27 3x3 convolutions and the 1x1
-head (pooling, upsampling, concatenation and activations are not
-products). A policy forward counts its state encoder, its projections and
-the causal attention products it needs (the lower triangle of the scores,
-diagonal included); embeddings, LayerNorms and heads of a few columns are
-left out. FFTs and elementwise work of the ADMM step are not counted.
+2 M K N. What implements a layer does not change its count. A prior
+counts itself (``priors/<prior>.py``: ``flops``, ``bytes``); the DT4IR
+U-Net, whose counts are here, is counted per forward of one slice: its 27
+3x3 convolutions and the 1x1 head (pooling, upsampling, concatenation and
+activations are not products). A policy forward counts its state
+encoder, its projections and the causal attention products it needs (the
+lower triangle of the scores, diagonal included); embeddings, LayerNorms
+and heads of a few columns are left out. FFTs and elementwise work of the
+ADMM step are not counted.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from types import ModuleType
+from typing import Dict, Optional, Tuple
 
 from .weights import UNET_CHANNELS, state_conv_hw
 
@@ -84,8 +87,15 @@ def bound_s(flops: float, nbytes: float, dtype: str) -> Tuple[float, str]:
 
 
 def unet_bound_s(cfg: Dict, batch: int) -> float:
-    """The bound of one denoiser call at ``batch``."""
+    """The bound of one U-Net call at ``batch``."""
     return bound_s(batch * unet_flops(cfg), unet_bytes(cfg, batch),
+                   cfg["dtype"])[0]
+
+
+def prior_bound_s(cfg: Dict, batch: int, prior: ModuleType) -> float:
+    """The bound of one denoiser call at ``batch``, from the prior's
+    counts."""
+    return bound_s(batch * prior.flops(cfg), prior.bytes(cfg, batch),
                    cfg["dtype"])[0]
 
 
@@ -108,15 +118,17 @@ def dt_stack_flops(cfg: Dict, tokens: int) -> float:
     return cfg["n_blocks"] * (proj + attn)
 
 
-def slice_flops(cfg: Dict) -> float:
+def slice_flops(cfg: Dict, prior: Optional[ModuleType] = None) -> float:
     """Model FLOPs of one slice's greedy episode of ``max_timesteps``
-    steps, as the evaluator runs it: a U-Net forward a step; two policy
-    forwards at the start (two- and three-token windows) and two
-    three-token forwards after each step but the last; one state encoding
-    a step, of x0 and of the zero image (the embedding cache)."""
+    steps, as the evaluator runs it: a call of ``prior`` a step (the
+    DT4IR U-Net's counts above when none is given); two policy forwards
+    at the start (two- and three-token windows) and two three-token
+    forwards after each step but the last; one state encoding a step, of
+    x0 and of the zero image (the embedding cache)."""
     steps = cfg["max_timesteps"]
     ctx = cfg["block_size"] // 3
     forwards = dt_stack_flops(cfg, 2 * ctx) \
         + (1 + 2 * (steps - 1)) * dt_stack_flops(cfg, 3 * ctx)
     encodes = (steps + 1) * state_encoder_flops(cfg)
-    return steps * unet_flops(cfg) + forwards + encodes
+    call = unet_flops(cfg) if prior is None else prior.flops(cfg)
+    return steps * call + forwards + encodes

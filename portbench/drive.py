@@ -26,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -42,6 +43,7 @@ class Run:
     kind: str
     config: Dict
     traffic: Dict
+    prior: Optional[ModuleType] = None     # the cell's ``priors/<prior>.py``
     setup_s: float = 0.0
     window_s: float = 0.0
     attempted: int = 0

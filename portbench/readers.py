@@ -7,11 +7,12 @@ was not measured.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
 from . import counts
+from .trace import union_s
 
 
 def p95_ms(run, kind: str, per_call: Optional[int] = None,
@@ -37,15 +38,35 @@ def traced_eval(run) -> bool:
 
 
 def unet_roofline_pct(run) -> Optional[float]:
-    """The U-Net's bound at the call's batch over the device time of the
-    ops launched under the U-Net spans, in %."""
+    """The prior's bound at the call's batch (its module's counts) over
+    the device time of the ops launched under the ``portbench.unet``
+    spans, in %."""
     if not traced_eval(run) or not run.trace.spans:
         return None
     device_s = run.trace.unet_device_s()
     if device_s <= 0:
         return None
-    bound = counts.unet_bound_s(run.config, run.per_call)
+    bound = counts.prior_bound_s(run.config, run.per_call, run.prior)
     return 100.0 * len(run.trace.spans) * bound / device_s
+
+
+def ops_roofline_pct(run, match: str,
+                     bound_s: Callable[[dict, int], float]
+                     ) -> Optional[float]:
+    """A kernel's roofline share, in %: ``bound_s(config, per_call)``, the
+    least time of the kernel's work in one prior call, times the number
+    of ``portbench.unet`` calls, over the device time of the traced ops
+    whose name contains ``match``. None where no op matched."""
+    if not traced_eval(run) or not run.trace.spans:
+        return None
+    t0, t1 = run.trace.window
+    device_s = union_s((max(a, t0), min(b, t1))
+                       for a, b, name in run.trace.device
+                       if match in name and min(b, t1) > max(a, t0))
+    if device_s <= 0:
+        return None
+    return 100.0 * len(run.trace.spans) \
+        * bound_s(run.config, run.per_call) / device_s
 
 
 def step_mfu_pct(run) -> Optional[float]:
@@ -53,7 +74,7 @@ def step_mfu_pct(run) -> Optional[float]:
     share of the compute dtype's peak, in %."""
     if not traced_eval(run) or run.traced_slices <= 0:
         return None
-    rate = counts.slice_flops(run.config) * run.traced_slices \
+    rate = counts.slice_flops(run.config, run.prior) * run.traced_slices \
         / run.trace.window_s
     return 100.0 * rate / counts.PEAK_FLOPS[run.config["dtype"]]
 

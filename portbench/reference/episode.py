@@ -6,11 +6,11 @@ its episode length, as the reference's early return does for one slice.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
-from .model import denoise, dt_forward, precision_scope
+from .model import dt_forward, precision_scope
 
 # Column of each action key in the policy's output, per mode
 # (decision_transformer.py:147-154).
@@ -39,14 +39,16 @@ def psnr_db(x: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def greedy_episodes(dt_sd: Dict[str, torch.Tensor],
-                    unet_sd: Dict[str, torch.Tensor],
+def greedy_episodes(dt_sd: Dict[str, torch.Tensor], denoise: Callable,
                     inputs: Dict[str, torch.Tensor], max_timesteps: int,
                     context: int, n_heads: int, mode: str = "norm",
                     precision: str = "float32"
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The greedy evaluation of every row of ``inputs``.
 
+    ``denoise(img (B, 1, H, W), sigma (B,), precision)``: the prior's
+    reference on its weights (a ``priors/<prior>.py`` ``reference`` with
+    its state dict bound).
     ``inputs``: ``x0`` and ``y0`` (B, H, W) complex, ``mask`` (B, H, W)
     bool, ``rtg`` (B,) the normalised RTG target, ``task`` (B,) the task
     token. The env starts from x0 clipped at 0 (datasets.py:160), both
@@ -95,7 +97,7 @@ def greedy_episodes(dt_sd: Dict[str, torch.Tensor],
         for t in range(1, max_timesteps + 1):
             stop = action[:, c_t] > DONE_THRESHOLD
             step = (~finished & ~stop)[:, None, None]
-            xn = denoise(unet_sd, (z - u).real[:, None], action[:, c_sigma],
+            xn = denoise((z - u).real[:, None], action[:, c_sigma],
                          precision)[:, 0]
             mu = action[:, c_mu][:, None, None]
             zn = _fft2c(xn.to(torch.complex64) + u)

@@ -16,9 +16,10 @@ from typing import Dict, Iterator, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-# float32 with TF32 off; TF32 products; operands rounded to float8 e4m3
-# with one scale a tensor (the per-tensor scaling an fp8 path would use).
-PRECISIONS = ("float32", "tf32", "fp8")
+# float32 with TF32 off; TF32 products; operands rounded to bfloat16;
+# operands rounded to float8 e4m3 with one scale a tensor (the per-tensor
+# scaling an fp8 path would use).
+PRECISIONS = ("float32", "tf32", "bfloat16", "fp8")
 FP8_MAX = 448.0
 SIGMA_D_SCALE = 70.0 / 255.0
 LN_EPS = 1e-5
@@ -45,10 +46,12 @@ def precision_scope(precision: str) -> Iterator[None]:
          torch.backends.cudnn.allow_tf32) = flags
 
 
-def _round(t: torch.Tensor, precision: str) -> torch.Tensor:
-    """``t`` as a product's operand under ``precision``: itself, or
-    rounded to float8 e4m3 on a scale that maps its largest magnitude to
-    the format's largest value."""
+def round_operand(t: torch.Tensor, precision: str) -> torch.Tensor:
+    """``t`` as a product's operand under ``precision``: itself, rounded
+    to bfloat16, or rounded to float8 e4m3 on a scale that maps its
+    largest magnitude to the format's largest value."""
+    if precision == "bfloat16":
+        return t.to(torch.bfloat16).to(t.dtype)
     if precision != "fp8":
         return t
     amax = t.detach().abs().amax()
@@ -57,15 +60,18 @@ def _round(t: torch.Tensor, precision: str) -> torch.Tensor:
 
 
 def linear(x, sd, name, precision):
-    return F.linear(_round(x, precision),
-                    _round(sd[name + ".weight"], precision),
+    """``sd``'s dense layer ``name`` on ``x``, its operands rounded."""
+    return F.linear(round_operand(x, precision),
+                    round_operand(sd[name + ".weight"], precision),
                     sd[name + ".bias"])
 
 
 def conv2d(x, sd, name, precision, **kw):
-    return F.conv2d(_round(x, precision),
-                    _round(sd[name + ".weight"], precision),
-                    sd[name + ".bias"], **kw)
+    """``sd``'s convolution ``name`` on ``x``, its operands rounded; a
+    layer without a bias may leave ``name.bias`` out."""
+    return F.conv2d(round_operand(x, precision),
+                    round_operand(sd[name + ".weight"], precision),
+                    sd.get(name + ".bias"), **kw)
 
 
 def dt_forward(sd: Dict[str, torch.Tensor], rtg, states, timesteps, task,
@@ -115,11 +121,12 @@ def dt_forward(sd: Dict[str, torch.Tensor], rtg, states, timesteps, task,
             e, dim=2)
         q, k, v = (a.reshape(b, steps, n_heads, d).transpose(1, 2)
                    for a in (q, k, v))
-        att = (_round(q, precision) @ _round(k, precision).transpose(-1, -2)
-               ) / math.sqrt(d)
+        att = (round_operand(q, precision)
+               @ round_operand(k, precision).transpose(-1, -2)) \
+            / math.sqrt(d)
         att = F.softmax(att.masked_fill(~causal, float("-inf")), dim=-1)
-        y = (_round(att, precision) @ _round(v, precision)).transpose(
-            1, 2).reshape(b, steps, e)
+        y = (round_operand(att, precision) @ round_operand(v, precision)
+             ).transpose(1, 2).reshape(b, steps, e)
         x = x + linear(y, sd, p + "c_att.o_proj", precision)
         # No residual around the MLP (decision_transformer.py:99-102).
         h = F.layer_norm(x, (e,), sd[p + "ln2.weight"], sd[p + "ln2.bias"],

@@ -16,6 +16,7 @@ package was loaded in the process.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import math
@@ -65,13 +66,13 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, device,
     loop's rate (the knee's sweep); with ``control``, the result also holds
     the numbers of the reference in that precision put in the program's
     place, on the same sample, under ``_control_numbers``."""
-    cfg, tr = cell.config, cell.traffic
+    cfg, tr, prior = cell.config, cell.traffic, cell.prior
     seed &= (1 << 63) - 1
     dev = torch.device(device)
-    dt_sd, unet_sd = make_weights(cfg, seed, dev)
+    dt_sd, prior_sd = make_weights(cfg, seed, dev, prior)
     pool = make_pool(cfg, int(tr["pool_per_task"]), seed)
-    models = Models(cfg, dt_sd, unet_sd, dev)
-    run = Run(kind=tr["kind"], config=cfg, traffic=tr)
+    models = Models(cfg, dt_sd, prior, prior_sd, dev)
+    run = Run(kind=tr["kind"], config=cfg, traffic=tr, prior=prior)
     extra = {"rate": rate} if rate is not None else {}
     GENERATORS[tr["kind"]](run, models, pool, seed, seconds, trace, t_start,
                         **extra)
@@ -101,9 +102,13 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, device,
     if cuda:
         torch.cuda.empty_cache()
     block = int(tr["check_block"])
-    ref = correct_mod.reference_answers(cfg, dt_sd, unet_sd, pool, ids, dev,
+    denoise = functools.partial(prior.reference, prior_sd)
+    ref = correct_mod.reference_answers(cfg, dt_sd, denoise, pool, ids, dev,
                                         block)
-    numbers = correct_mod.compare(images, psnrs, lens, ref)
+    own = None if cfg["dtype"] == "float32" else \
+        correct_mod.reference_answers(cfg, dt_sd, denoise, pool, ids, dev,
+                                      block, precision=cfg["dtype"])
+    numbers = correct_mod.compare(images, psnrs, lens, ref, own)
     ok, checks = correct_mod.judge(numbers, cell.limits)
     checks = {"missing_answers": {"value": run.failed, "limit": 0},
               "compared_answers": {"value": len(ids),
@@ -118,9 +123,9 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool, device,
     if trace:
         result["breakdown"] = breakdown(run.trace)
     if control is not None:
-        low = correct_mod.reference_answers(cfg, dt_sd, unet_sd, pool, ids,
+        low = correct_mod.reference_answers(cfg, dt_sd, denoise, pool, ids,
                                             dev, block, precision=control)
-        result["_control_numbers"] = correct_mod.compare(*low, ref)
+        result["_control_numbers"] = correct_mod.compare(*low, ref, own)
     result["checks"] = checks
     result["_run"] = run
     result["_numbers"] = numbers

@@ -1,14 +1,16 @@
 """The system under test: the port's models, evaluator and service, built
 on the benchmark's weights through the port's own converters.
 
-This is the only module of the harness that imports the port. It hands
-the port weights in the reference checkpoints' layouts (the converters of
-``utils/convert.py`` map them, as for the published ``.pt`` files) and
-records as the evaluation dataset and the service take them; it reads
-back answers, ``stats()``, and nothing of the port's internals.
+This module and the ``system`` function of each prior
+(``priors/<prior>.py``) are all of the harness that imports the port. It
+hands the port weights in the reference checkpoints' layouts (the
+converters of ``utils/convert.py`` map them, as for the published ``.pt``
+files) and records as the evaluation dataset and the service take them;
+it reads back answers, ``stats()``, and nothing of the port's internals.
 """
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Callable, Dict
 
 import torch
@@ -29,33 +31,30 @@ def model_config(cfg: Dict):
 
 
 class Models:
-    """The policy and the prior of ``cfg`` on ``device``."""
+    """The policy of ``cfg`` and its prior (``prior.system``) on
+    ``device``."""
 
-    def __init__(self, cfg: Dict, dt_sd: Dict, unet_sd: Dict, device):
+    def __init__(self, cfg: Dict, dt_sd: Dict, prior: ModuleType,
+                 prior_sd: Dict, device):
         from dt4image_restoration_tpu_torch.models.decision_transformer \
             import DecisionTransformer
-        from dt4image_restoration_tpu_torch.models.unet import UNetDenoiser
         from dt4image_restoration_tpu_torch.utils.convert import (
-            dt_from_reference, load_strict, unet_from_reference)
+            dt_from_reference, load_strict)
         from dt4image_restoration_tpu_torch.utils.device import \
             resolve_device
-        if cfg["depth"] != 4 or cfg["in_channels"] != 2 \
-                or cfg["out_channels"] != 1 or cfg["mlp_ratio"] != 4:
-            raise ValueError("the port's U-Net and DT have depth 4, 2 in / "
-                             "1 out and an MLP of 4x the width")
+        if cfg["mlp_ratio"] != 4:
+            raise ValueError("the port's DT has an MLP of 4x the width")
         self.device = resolve_device(device)
         self.cfg = model_config(cfg)
         with torch.device(self.device):
             dt = DecisionTransformer(self.cfg)
-            den = UNetDenoiser(base_channels=cfg["base_channels"],
-                               dtype=cfg["dtype"], packed=cfg["unet_mode"])
         load_strict(dt, dt_from_reference(dt_sd), "DT weights")
-        load_strict(den, unet_from_reference(unet_sd), "U-Net weights")
         self.dt = dt.eval().requires_grad_(False)
-        self.denoiser = den.eval().requires_grad_(False)
+        self.denoiser = prior.system(cfg, prior_sd, self.device)
 
     def denoise(self, spanned: bool) -> Callable:
-        """The denoiser, its calls each in a U-Net span when ``spanned``."""
+        """The denoiser, its calls each in a ``portbench.unet`` span when
+        ``spanned``."""
         if not spanned:
             return self.denoiser
         den = self.denoiser

@@ -53,7 +53,8 @@ def altered_answer(monkeypatch):
                                    altered_answer],
                          ids=["sound", "unchanged_step", "half_batch",
                               "altered_answer"])
-@pytest.mark.parametrize("name", ["eval_b63_f32", "serve_policy_f32"])
+@pytest.mark.parametrize("name", ["eval_b63_f32", "serve_policy_f32",
+                                  "eval_b63_bf16"])
 def test_a_fault_makes_the_run_incorrect(name, fault, tiny_cell,
                                          monkeypatch):
     cell = tiny_cell(name)

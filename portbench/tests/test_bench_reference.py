@@ -1,4 +1,5 @@
 """The frozen reference against the port's oracle, and its precisions."""
+import functools
 import json
 
 import numpy as np
@@ -7,8 +8,9 @@ import torch
 
 from portbench.records import make_pool
 from portbench.reference import greedy_episodes
-from portbench.reference.model import _round, precision_scope
-from portbench.spec import PACKAGE
+from portbench.reference.model import denoise
+from portbench.reference import precision_scope, round_operand
+from portbench.spec import PACKAGE, load_prior
 from portbench.weights import make_weights
 
 
@@ -28,10 +30,10 @@ def test_batched_reference_matches_the_ports_oracle(stop_bias, want_stops):
     from dt4image_restoration_tpu_torch.utils.torch_oracle import \
         torch_eval_episode
     cfg = _cfg(stop_bias=stop_bias, tasks=["4x_15", "8x_5"], max_timesteps=8)
-    dt_sd, unet_sd = make_weights(cfg, 7, "cpu")
+    dt_sd, unet_sd = make_weights(cfg, 7, "cpu", load_prior("unet_nm"))
     pool = make_pool(cfg, 1, 7)
-    x, ep = greedy_episodes(dt_sd, unet_sd, pool.reference_inputs([0, 1],
-                                                                  "cpu"),
+    x, ep = greedy_episodes(dt_sd, functools.partial(denoise, unet_sd),
+                            pool.reference_inputs([0, 1], "cpu"),
                             8, 6, cfg["n_heads"])
     for i in range(2):
         ref_x, ref_len = torch_eval_episode(
@@ -45,10 +47,18 @@ def test_batched_reference_matches_the_ports_oracle(stop_bias, want_stops):
 
 def test_fp8_rounds_operands_to_three_mantissa_bits():
     t = torch.tensor([1.0, 1.06, 0.5, -448.0])   # scale 1
-    q = _round(t, "fp8")
+    q = round_operand(t, "fp8")
     assert q[0] == 1.0 and q[2] == 0.5 and q[1] != t[1]
     assert torch.allclose(q, t, rtol=2 ** -4)
-    assert _round(t, "float32") is t
+    assert round_operand(t, "float32") is t
+
+
+def test_bfloat16_rounds_operands_to_eight_significant_bits():
+    t = torch.tensor([1.0, 1.0 + 2 ** -7, 1.0 + 2 ** -9, 3.0e38])
+    q = round_operand(t, "bfloat16")
+    assert q.dtype == t.dtype
+    assert q[0] == 1.0 and q[1] == t[1] and q[2] == 1.0
+    assert torch.equal(q, t.to(torch.bfloat16).float())
 
 
 def test_precision_scope_sets_and_restores_tf32():

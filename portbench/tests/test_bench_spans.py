@@ -11,7 +11,9 @@ DEVICE = (0, 7)
 NEW = {"evaluator.syncs_per_step", "evaluator.issue_ms_per_step",
        "env.issue_ms_per_step", "models.unet_issue_ms",
        "evaluator.policy_issue_ms_per_step",
-       "device.idle_share_in_steps.b1", "device.idle_share_in_steps.eval"}
+       "device.idle_share_in_steps.b1", "device.idle_share_in_steps.eval",
+       "device.idle_share_in_steps.bf16"}
+B63 = {"device.idle_share_in_steps.eval", "device.idle_share_in_steps.bf16"}
 
 
 def X(name, cat, ts, dur, thread=(1, 10)):
@@ -133,9 +135,9 @@ def test_each_metric_file_reads_the_spans(name):
 
 
 @pytest.mark.parametrize("cell,want", [
-    ("eval_b1_f32", NEW - {"device.idle_share_in_steps.eval"}),
+    ("eval_b1_f32", NEW - B63),
     ("eval_b63_f32", {"device.idle_share_in_steps.eval"}),
-    ("eval_b63_bf16", {"device.idle_share_in_steps.eval"}),
+    ("eval_b63_bf16", {"device.idle_share_in_steps.bf16"}),
     ("serve_policy_f32", set())])
 def test_the_cells_report_their_span_metrics(cell, want):
     names = {m.name for m in spec.load_cell(cell).per_layer}

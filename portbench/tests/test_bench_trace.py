@@ -88,7 +88,8 @@ def test_roofline_and_mfu_from_known_counts():
     cfg = _cfg()
     t = trace.read_events(events())
     run = Run(kind="eval_closed", config=cfg, traffic={}, trace=t,
-              per_call=1, traced_slices=2)
+              per_call=1, traced_slices=2,
+              prior=spec.load_prior(cfg["prior"]))
     bound = counts.unet_bound_s(cfg, 1)
     assert readers.unet_roofline_pct(run) == pytest.approx(
         100 * 2 * bound / 300e-6)
@@ -123,3 +124,25 @@ def test_single_slice_rate_and_tail_of_a_one_slice_loop():
     batched = Run(kind="eval_closed", config={}, traffic={}, per_call=63,
                   slices=630, window_s=20.0, latencies_ms=lat)
     assert rate(batched) is None and tail(batched) is None
+
+
+def test_a_kernels_roofline_from_the_ops_its_name_matches():
+    """The spans times the kernel's bound a call, over the device time of
+    the window's ops whose name holds the match; None where none does."""
+    run = Run(kind="eval_closed", config=_cfg(), traffic={},
+              trace=trace.read_events(events()), per_call=3,
+              prior=spec.load_prior("unet_nm"))
+    seen = []
+
+    def bound_s(cfg, batch):
+        seen.append((cfg["prior"], batch))
+        return 1e-6 * batch
+    assert readers.ops_roofline_pct(run, "k_conv", bound_s) == \
+        pytest.approx(100 * 2 * 3e-6 / 200e-6)
+    # k_conv, k_up, k_fft and k_other: 100-400, 600-700, 800-900 us.
+    assert readers.ops_roofline_pct(run, "k_", bound_s) == \
+        pytest.approx(100 * 2 * 3e-6 / 500e-6)
+    assert seen == [("unet_nm", 3)] * 2
+    assert readers.ops_roofline_pct(run, "no_such_kernel", bound_s) is None
+    run.trace = None
+    assert readers.ops_roofline_pct(run, "k_", bound_s) is None

@@ -25,6 +25,8 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATEGORIES = ("cpu_op", "user_annotation", "cuda_runtime",
                    "cuda_driver")
 WINDOW_SPAN = "portbench.window"
+# Around each call of the prior, whichever the configuration names; the
+# name stays as the first prior, the U-Net, gave it.
 UNET_SPAN = "portbench.unet"
 TOP = 10
 
@@ -207,6 +209,7 @@ class Profile:
 
 
 def unet_span() -> torch.profiler.record_function:
+    """The span of one prior call."""
     return torch.profiler.record_function(UNET_SPAN)
 
 

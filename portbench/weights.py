@@ -4,13 +4,16 @@ layouts, made on the device from the run's seed.
 Each state dict comes from one ``randn`` call of a generator on the device
 (a few large calls, not one per leaf), in the distributions of the
 reference restatements: the Decision Transformer's leaves N(0, 0.05) with
-LayerNorm scales 1 + N(0, 0.05); the U-Net's convs He-scaled, the 1x1
-head damped tenfold, biases N(0, 0.01), so that the random prior is
-near-contractive like a trained one. The stop output's bias is set to
-``stop_bias`` so that every episode runs its full length.
+LayerNorm scales 1 + N(0, 0.05). The stop output's bias is set to
+``stop_bias`` so that every episode runs its full length. The prior's
+weights come from its module's ``state_dict`` (``priors/<prior>.py``),
+drawn after the policy's; the DT4IR U-Net's (:func:`unet_state_dict`) are
+He-scaled convs, the 1x1 head damped tenfold, biases N(0, 0.01), so that
+the random prior is near-contractive like a trained one.
 """
 from __future__ import annotations
 
+from types import ModuleType
 from typing import Dict, List, Tuple
 
 import torch
@@ -108,8 +111,10 @@ def unet_state_dict(cfg: Dict, gen: torch.Generator, device
     return sd
 
 
-def make_weights(cfg: Dict, seed: int, device
+def make_weights(cfg: Dict, seed: int, device, prior: ModuleType
                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """(policy, prior) state dicts of ``cfg`` from ``seed``."""
+    """(policy, prior) state dicts of ``cfg`` from ``seed``; the prior's
+    from its module's ``state_dict``."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    return dt_state_dict(cfg, gen, device), unet_state_dict(cfg, gen, device)
+    dt_sd = dt_state_dict(cfg, gen, device)
+    return dt_sd, prior.state_dict(cfg, gen, device)
