@@ -56,10 +56,13 @@ import glob
 import os
 import sys
 
-from .config import EVAL_DIR_TOKENS
+from .config import DENOISER_ARCHS, EVAL_DIR_TOKENS
 from .models.unet import UNET_MODES
 from .utils.profiling import trace_if_enabled
 
+# Each prior's checkpoint where its project keeps it.
+DENOISER_CKPTS = {"unet_nm": "evaluation/pretrained/unet-nm.pt",
+                  "drunet": "model_zoo/drunet_gray.pth"}
 EVAL_DIRS_9 = [f"evaluation/image_dir/vanilla/{t}/" for t in EVAL_DIR_TOKENS]
 EVAL_DIRS_6 = EVAL_DIRS_9[:6]
 FLEX_RTGS = [1.5, 3, 3.5, 4, 4.5]
@@ -122,8 +125,16 @@ def build_parser() -> argparse.ArgumentParser:
             s.add_argument("--rtg", required=True)
         s.add_argument("--max_timesteps", type=int, default=30)
         s.add_argument("--checkpoint", default=ckpt)
-        s.add_argument("--denoiser_ckpt",
-                       default="evaluation/pretrained/unet-nm.pt")
+        s.add_argument("--denoiser_ckpt", default=None,
+                       help="the prior's checkpoint (default: "
+                            "evaluation/pretrained/unet-nm.pt, or "
+                            "model_zoo/drunet_gray.pth for drunet)")
+        s.add_argument("--denoiser_arch", default="unet_nm",
+                       choices=list(DENOISER_ARCHS),
+                       help="the plug-in prior: 'unet_nm' (default), the "
+                            "DT4IR U-Net; 'drunet', DPIR's DRUNet "
+                            "(DPIR's UNetRes checkpoint layout; "
+                            "--unet_packed does not apply)")
         s.add_argument("--data_dirs", nargs="*", default=None)
         s.add_argument("--data_root", default=None,
                        help="re-root the default eval dir list "
@@ -229,6 +240,21 @@ def _process_group(device):
             dist.destroy_process_group()
 
 
+def _prior_note(args) -> str:
+    """How the verb runs its prior, for its stderr line."""
+    if args.denoiser_arch == "unet_nm":
+        return f"U-Net mode {args.unet_packed}"
+    return f"prior {args.denoiser_arch}"
+
+
+def _load_prior(args, dev):
+    """The verb's plug-in prior (``--denoiser_arch``) on ``dev``."""
+    from .utils.loaders import load_denoiser
+    path = args.denoiser_ckpt or DENOISER_CKPTS[args.denoiser_arch]
+    return load_denoiser(path, device=dev, dtype=args.dtype,
+                         packed=args.unet_packed, arch=args.denoiser_arch)
+
+
 def _evaluate(args) -> None:
     with _process_group(args.device) as dev:
         _evaluate_on(args, dev, _eval_mesh(dev))
@@ -239,7 +265,7 @@ def _evaluate_on(args, dev, mesh) -> None:
     from .inference import Evaluator
     from .models import fused_forward_takes
     from .ops.kernels import transformer as k3
-    from .utils.loaders import load_denoiser, load_dt
+    from .utils.loaders import load_dt
 
     mode = "flex" if args.mode == "flex" else "norm"
     # The per-op forward, where the Evaluator picks it, with kernels K4
@@ -247,7 +273,7 @@ def _evaluate_on(args, dev, mesh) -> None:
     cfg = ModelConfig(block_size=args.block_size, n_embeds=args.n_embeds,
                       mode=mode, use_pallas=True, dtype=args.dtype)
     # The Evaluator chooses the forward from the config; say which.
-    run = f"dtype {args.dtype}, U-Net mode {args.unet_packed}"
+    run = f"dtype {args.dtype}, {_prior_note(args)}"
     if fused_forward_takes(cfg):
         print(f"policy forward: fused (kernel K3); {run}", file=sys.stderr)
     else:
@@ -260,8 +286,7 @@ def _evaluate_on(args, dev, mesh) -> None:
         args, EVAL_DIRS_6 if args.mode == "flex" else EVAL_DIRS_9))
     targets = FLEX_RTGS if args.mode == "flex" else [float(args.rtg)]
     dt = load_dt(cfg, args.checkpoint, device=dev)
-    denoiser = load_denoiser(args.denoiser_ckpt, device=dev,
-                             dtype=args.dtype, packed=args.unet_packed)
+    denoiser = _load_prior(args, dev)
     for rtg in targets:
         evaluator = Evaluator(dt=dt, denoise=denoiser, cfg=cfg,
                               max_timesteps=args.max_timesteps or 30,
@@ -300,17 +325,16 @@ def _search_on(args, dev, mesh) -> None:
     from .models.arniqa import (make_value_fn, proxy_value_fn,
                                 proxy_value_fn_batched)
     from .training.sharding import process_count
-    from .utils.loaders import load_arniqa, load_denoiser, load_dt
+    from .utils.loaders import load_arniqa, load_dt
 
     rtg_target = float(args.rtg)
     # The per-op forward with kernels K4 (attention) and K5 (LayerNorm).
     cfg = ModelConfig(block_size=args.block_size, n_embeds=args.n_embeds,
                       mode="norm", use_pallas=True, dtype=args.dtype)
     print(f"policy forward: per-op (kernels K4, K5); dtype {args.dtype}, "
-          f"U-Net mode {args.unet_packed}", file=sys.stderr)
+          f"{_prior_note(args)}", file=sys.stderr)
     dt = load_dt(cfg, args.checkpoint, device=dev)
-    denoiser = load_denoiser(args.denoiser_ckpt, device=dev,
-                             dtype=args.dtype, packed=args.unet_packed)
+    denoiser = _load_prior(args, dev)
     if args.arniqa_ckpt and os.path.exists(args.arniqa_ckpt):
         # The reference's autocast also wraps the ARNIQA scoring.
         arniqa = load_arniqa(args.arniqa_ckpt, dev)

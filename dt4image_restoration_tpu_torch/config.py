@@ -57,6 +57,10 @@ class ModelConfig:
         return self.block_size // 3
 
 
+# The plug-in priors: the DT4IR U-Net (``unet-nm.pt``) and DPIR's DRUNet.
+DENOISER_ARCHS = ("unet_nm", "drunet")
+
+
 @dataclasses.dataclass(frozen=True)
 class DenoiserConfig:
     """U-Net plug-in prior."""

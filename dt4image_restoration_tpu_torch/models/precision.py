@@ -33,7 +33,8 @@ def compute_dtype(dtype: Union[str, torch.dtype]) -> torch.dtype:
 
 def cast_params(layer: nn.Module, dtype: torch.dtype
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """``(weight, bias)`` of a Linear or Conv2d in ``dtype``: the
+    """``(weight, bias)`` of a Linear, Conv2d or ConvTranspose2d in
+    ``dtype`` (in the weight's memory format): the
     parameters themselves in their own dtype, else copies (without grad)
     remade only when a parameter changed (in place, by reassignment or by a
     move to another device)."""
@@ -67,3 +68,14 @@ def conv2d(layer: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype
     w, b = cast_params(layer, dtype)
     return F.conv2d(x.to(dtype), w, b, layer.stride, layer.padding,
                     layer.dilation, layer.groups)
+
+
+def conv_transpose2d(layer: nn.ConvTranspose2d, x: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """``layer(x)`` computed in ``dtype``."""
+    if dtype == torch.float32 and x.dtype == torch.float32:
+        return layer(x)
+    w, b = cast_params(layer, dtype)
+    return F.conv_transpose2d(x.to(dtype), w, b, layer.stride, layer.padding,
+                              layer.output_padding, layer.groups,
+                              layer.dilation)

@@ -32,6 +32,8 @@ import json
 import os
 import sys
 
+from ..config import DENOISER_ARCHS
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -48,6 +50,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "prior (the corpus is still trainable: the env "
                         "physics, not the prior's quality, drives "
                         "learning)")
+    p.add_argument("--denoiser_arch", default="unet_nm",
+                   choices=list(DENOISER_ARCHS),
+                   help="the prior: the DT4IR U-Net (default) or DPIR's "
+                        "DRUNet")
     p.add_argument("--eval", action="store_true",
                    help="also write the nine evaluation/image_dir/vanilla/"
                         "{A}_{S}/ eval dirs the verbs scan by default")
@@ -74,7 +80,8 @@ def main(argv=None) -> int:
     from ..utils.loaders import load_denoiser
 
     os.makedirs(args.out, exist_ok=True)
-    denoise = load_denoiser(args.denoiser_ckpt, device=args.device)
+    denoise = load_denoiser(args.denoiser_ckpt, device=args.device,
+                            arch=args.denoiser_arch)
     stats = record_expert_corpus(
         args.out, denoise, n_traj=args.n_traj, ep_len=args.ep_len,
         experiment=args.experiment, seed=args.seed, device=args.device,

@@ -8,8 +8,9 @@ Two sources, each turned into a port ``state_dict``:
     state encoder's dense kernel is permuted from the NHWC flatten of the
     JAX model to the NCHW flatten of the port.
   * the reference's published PyTorch checkpoints (``unet-nm.pt``,
-    ``model_experiment_{1,2}.pt``) and the ARNIQA hub checkpoint:
-    :func:`unet_from_reference`, :func:`dt_from_reference`,
+    ``model_experiment_{1,2}.pt``), DPIR's DRUNet (``drunet_gray.pth``)
+    and the ARNIQA hub checkpoint: :func:`unet_from_reference`,
+    :func:`dt_from_reference`, :func:`drunet_from_reference`,
     :func:`arniqa_from_hub`. Only key names change. :func:`unet_to_reference`
     and :func:`dt_to_reference` write a port model back in the reference's
     layout.
@@ -122,6 +123,29 @@ def unet_to_reference(state_dict: Mapping[str, Any]
         else:
             holder = f"{block}.conv"
         sd[f"{holder}.conv-{i}.conv2d.{leaf}"] = _t(v).cpu()
+    return sd
+
+
+# --- DRUNet --------------------------------------------------------------
+
+_DRUNET_REF = re.compile(
+    r"m_(?:head|tail|body\.\d+\.res\.[02]"
+    r"|down[123]\.\d+(?:\.res\.[02])?|up[123]\.\d+(?:\.res\.[02])?)"
+    r"\.weight")
+
+
+def drunet_from_reference(state_dict: Mapping[str, Any]
+                          ) -> Dict[str, torch.Tensor]:
+    """DPIR ``UNetRes`` ``state_dict`` (``m_head``, ``m_down1``-``m_down3``,
+    ``m_body``, ``m_up3``-``m_up1``, ``m_tail``, bias-free; an optional
+    ``net.`` prefix) -> port ``DRUNetDenoiser`` state dict. A key outside
+    that layout raises here; a missing one in :func:`load_strict`."""
+    sd = {}
+    for key, v in _strip(state_dict).items():
+        key = key.removeprefix("net.")
+        if _DRUNET_REF.fullmatch(key) is None:
+            raise ValueError(f"unrecognized DRUNet checkpoint key: {key}")
+        sd["net." + key] = _t(v)
     return sd
 
 

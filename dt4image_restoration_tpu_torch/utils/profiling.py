@@ -11,9 +11,9 @@ spans stay in the hot loops. Both tree searches (``inference/mcts.py``,
 ``inference/mcts_device.py``) annotate each round as
 ``SEARCH_ROUND.format(i)``, so that one round of either backend can be read
 from a trace with :func:`region_breakdown`. The evaluation loop, the ADMM
-step, the U-Net and the service annotate their work under the ``dt4ir.``
-names below; the evaluator's spans nest under ``SERVE_LAUNCH`` when the
-service runs them.
+step, the priors (U-Net, DRUNet) and the service annotate their work under
+the ``dt4ir.`` names below; the evaluator's spans nest under
+``SERVE_LAUNCH`` when the service runs them.
 
     timer = StepTimer(device)
     for batch in ...:
@@ -45,10 +45,12 @@ EVAL_PREPARE = "dt4ir.eval.prepare"
 EVAL_ROLLOUT = "dt4ir.eval.rollout"
 EVAL_STEP = "dt4ir.eval.step"
 EVAL_SYNC = "dt4ir.eval.sync"
-# One ADMM iteration and its masked merge; one U-Net forward; one policy
-# step (buffer writes, state encoder, the two DT forwards, masked merges).
+# One ADMM iteration and its masked merge; one U-Net forward; one DRUNet
+# forward; one policy step (buffer writes, state encoder, the two DT
+# forwards, masked merges).
 ENV_ADMM = "dt4ir.env.admm"
 UNET = "dt4ir.unet"
+DRUNET = "dt4ir.drunet"
 POLICY_STEP = "dt4ir.policy.step"
 # The service's worker: the wait for a first request, the fill window after
 # it, the wait for an in-flight permit, the launch of a batch; its resolver:

@@ -1,6 +1,7 @@
 """Plain functional restatement of the reference CSMRI pipeline's U-Net
 prior and fixed-parameter PnP-ADMM loop, on state dicts in the reference
-checkpoint's key layout.
+checkpoint's key layout, and of DPIR's DRUNet prior on its ``UNetRes``
+layout.
 
 The parity oracle (:mod:`.torch_oracle`) denoises through these functions.
 They are written against the reference's documented behaviour
@@ -9,11 +10,13 @@ code with the port's models (``models/unet.py``), so that the yardstick
 the port is held to cannot move with the port. Counterpart of the JAX
 package's ``utils/torch_reference.py``: the same functions on the same
 seeds give the same tensors. The ARNIQA random state dict is
-``models/arniqa.py:random_arniqa_state_dict``.
+``models/arniqa.py:random_arniqa_state_dict``. DRUNet has no JAX twin: the
+port's ``models/drunet.py`` is held to :func:`torch_drunet_forward`.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+import contextlib
+from typing import Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -91,6 +94,73 @@ def torch_denoise(sd, img, sigma: float):
     n, _, h, w = img.shape
     noise_map = torch.full((n, 1, h, w), float(sigma))
     return torch.clamp(torch_unet_forward(
+        sd, torch.cat([img, noise_map], dim=1)), 0, 1)
+
+
+@contextlib.contextmanager
+def _no_tf32() -> Iterator[None]:
+    """float32 products in float32 on a CUDA device too (TF32 off)."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+def torch_drunet_forward(sd: Mapping[str, torch.Tensor], x: torch.Tensor
+                         ) -> torch.Tensor:
+    """DRUNet's forward (DPIR ``models/network_unet.py:UNetRes.forward``,
+    ``drunet_gray``) on (B, in, H, W) float32 inputs, with TF32 off, on a
+    state dict in DPIR's layout: ``m_head``, ``m_down{1,2,3}.{0..nb-1}``
+    ResBlocks (``res.0``, ReLU, ``res.2``) then ``.{nb}`` the 2x2 stride-2
+    conv, ``m_body.{0..nb-1}``, ``m_up{3,2,1}.0`` the 2x2 stride-2
+    transposed conv then ``.{1..nb}`` ResBlocks, ``m_tail``; bias-free.
+    Sides must be multiples of 8: DPIR pads other inputs outside the
+    network, which is left out here."""
+    nb = sum(1 for k in sd if k.startswith("m_body.")
+             and k.endswith(".res.0.weight"))
+
+    def blocks(prefix, h, first):
+        for i in range(first, first + nb):
+            r = F.relu(F.conv2d(h, sd[f"{prefix}.{i}.res.0.weight"],
+                                padding=1))
+            h = h + F.conv2d(r, sd[f"{prefix}.{i}.res.2.weight"], padding=1)
+        return h
+
+    def down(k, h):
+        return F.conv2d(blocks(f"m_down{k}", h, 0),
+                        sd[f"m_down{k}.{nb}.weight"], stride=2)
+
+    def up(k, h):
+        return blocks(f"m_up{k}", F.conv_transpose2d(
+            h, sd[f"m_up{k}.0.weight"], stride=2), 1)
+
+    with _no_tf32():
+        x1 = F.conv2d(x, sd["m_head.weight"], padding=1)
+        x2 = down(1, x1)
+        x3 = down(2, x2)
+        x4 = down(3, x3)
+        y = blocks("m_body", x4, 0)
+        y = up(3, y + x4)
+        y = up(2, y + x3)
+        y = up(1, y + x2)
+        return F.conv2d(y + x1, sd["m_tail.weight"], padding=1)
+
+
+def torch_drunet_denoise(sd, img, sigma):
+    """DRUNet as a plug-in prior: the image and its sigma noise map (DPIR's
+    second input channel; ``sigma`` a float or (B,)), the output clamped to
+    [0, 1] as the DT4IR prior's wrapper clamps (noise.py:155-164; DPIR's
+    own loop does not clamp inside the network)."""
+    n, _, h, w = img.shape
+    noise_map = torch.as_tensor(sigma, dtype=img.dtype,
+                                device=img.device).reshape(
+        -1, 1, 1, 1).expand(n, 1, h, w)
+    return torch.clamp(torch_drunet_forward(
         sd, torch.cat([img, noise_map], dim=1)), 0, 1)
 
 
