@@ -13,12 +13,21 @@ documents, which published-checkpoint outputs depend on:
   * the initial RTG forward sees all-zero RTG and action streams.
   * the stop action ``T > 0.5`` freezes an image through the env's done
     mask; the loop ends once every image has finished.
+
+On CUDA the :class:`Evaluator` runs each policy step as one replay of a
+CUDA graph (:class:`PolicyGraphs`): the step index lives on the device and
+the step reads and writes static tensors, so the host launches a few copies
+and a replay in place of about a hundred small launches. The service and
+the tree searches call :func:`greedy_rollout` without graphs.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 import time as _time
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Hashable, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -33,13 +42,20 @@ from ..models.decision_transformer import (DecisionTransformer,
                                            make_dt_embed_apply,
                                            make_fused_dt_apply,
                                            make_state_encode)
+from ..ops.kernels import add_launches, tally_launches
 from ..training.sharding import (Mesh, gather_eval_outputs,
                                  local_output_offset, padded_per_process,
                                  replicate, run_sharded, shard_eval_inputs,
                                  synchronize)
 from ..utils.device import resolve_device
 from ..utils.profiling import (ENV_ADMM, EVAL_PREPARE, EVAL_ROLLOUT,
-                               EVAL_STEP, EVAL_SYNC, POLICY_STEP, annotate)
+                               EVAL_STEP, EVAL_SYNC, POLICY_GRAPH,
+                               POLICY_STEP, annotate)
+
+# One capture at a time in the process: a capture's set-up synchronises the
+# device and empties the allocator's cache, which must not fall inside
+# another thread's capture on another device.
+_CAPTURE_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass
@@ -197,6 +213,182 @@ def _host_bool(x: torch.Tensor) -> bool:
         return bool(x)
 
 
+@dataclasses.dataclass
+class StaticPolicyStep:
+    """The tensors one batch's policy step reads and writes in place, so
+    that a CUDA graph can replay it: the rolling buffers, the action and
+    RTG prediction the next ADMM step reads, and the step's inputs (the
+    observation, the live mask and the step index, on the device)."""
+    bufs: EvalBuffers
+    action_dict: Dict[str, torch.Tensor]
+    pred_rtg: torch.Tensor
+    ob: torch.Tensor      # (B, H*W)
+    live: torch.Tensor    # (B,) bool
+    t: torch.Tensor       # (1,) int64
+    step: Optional[Callable[["StaticPolicyStep"], None]] = None
+    graph: Optional[Any] = None   # torch.cuda.CUDAGraph once captured
+    key: Hashable = None
+    # The kernel launches of one replay, by wrapper module (see
+    # ``ops/kernels/_build.py:tally_launches``).
+    launches: Dict[str, int] = dataclasses.field(default_factory=dict)
+
+    @classmethod
+    def like(cls, bufs: EvalBuffers, action_dict: Dict[str, torch.Tensor],
+             pred_rtg: torch.Tensor) -> "StaticPolicyStep":
+        """Zeroed static tensors of the shapes of a seeded batch."""
+        z = torch.zeros_like
+        dev = bufs.states.device
+        return cls(
+            bufs=EvalBuffers(
+                states=z(bufs.states), actions=z(bufs.actions),
+                rtg=z(bufs.rtg), task=z(bufs.task),
+                state_embs=None if bufs.state_embs is None
+                else z(bufs.state_embs)),
+            action_dict={k: z(v) for k, v in action_dict.items()},
+            pred_rtg=z(pred_rtg), ob=z(bufs.states[:, 0]),
+            live=torch.zeros(bufs.states.shape[0], dtype=torch.bool,
+                             device=dev),
+            t=torch.zeros(1, dtype=torch.long, device=dev))
+
+    def load(self, bufs: EvalBuffers, action_dict: Dict[str, torch.Tensor],
+             pred_rtg: torch.Tensor) -> None:
+        """Copy a call's seeded buffers and first outputs in."""
+        for f in dataclasses.fields(EvalBuffers):
+            dst = getattr(self.bufs, f.name)
+            if dst is not None:
+                dst.copy_(getattr(bufs, f.name))
+        for k, v in self.action_dict.items():
+            v.copy_(action_dict[k])
+        self.pred_rtg.copy_(pred_rtg)
+
+
+def _write_slot(buf: torch.Tensor, slot: torch.Tensor, live: torch.Tensor,
+                value: torch.Tensor) -> None:
+    """``buf[:, slot] = value`` in the rows where ``live``, for a
+    one-element device index ``slot``: one slot is read and written."""
+    old = buf.index_select(1, slot)[:, 0]
+    buf.index_copy_(1, slot, _where_rows(live, value, old)[:, None])
+
+
+def static_policy_step(s: StaticPolicyStep, policy_step: Callable,
+                       encode: Optional[Callable], max_timesteps: int
+                       ) -> None:
+    """One policy step of :func:`greedy_rollout` on ``s``'s tensors, in
+    place, with the step index ``s.t`` on the device: the same operations
+    on the same values as the eager loop, without a host read, so that it
+    can be captured."""
+    bufs, live = s.bufs, s.live
+    slot = s.t.clamp(max=max_timesteps - 1)
+    _write_slot(bufs.states, slot, live, s.ob)
+    _write_slot(bufs.rtg, slot, live, s.pred_rtg[:, None])
+    if bufs.state_embs is not None and encode is not None:
+        _write_slot(bufs.state_embs, slot, live, encode(s.ob))
+    _, new_dict, new_rtg, stepped = policy_step(bufs, s.t)
+    bufs.actions.copy_(_where_rows(live, stepped.actions, bufs.actions))
+    for k, v in s.action_dict.items():
+        v.copy_(torch.where(live, new_dict[k], v))
+    s.pred_rtg.copy_(torch.where(live, new_rtg, s.pred_rtg))
+
+
+def _capture(s: StaticPolicyStep) -> None:
+    """Capture ``s.step`` as a CUDA graph, after one warm-up run on the same
+    side stream (K3's packed weights, the bfloat16 weight copies, the
+    cuBLAS and cuDNN handles and workspaces of that stream). The kernel
+    wrappers' calls during the capture launch nothing: they are tallied
+    in ``s.launches`` and counted at each replay."""
+    dev = s.t.device
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        s.step(s)
+    graph = torch.cuda.CUDAGraph()
+    # Thread-local: the shards of a mesh drive their devices from threads.
+    with _CAPTURE_LOCK, tally_launches() as launches, torch.cuda.graph(
+            graph, stream=side, capture_error_mode="thread_local"):
+        s.step(s)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    s.graph, s.launches = graph, launches
+
+
+class PolicyGraphs:
+    """The policy step of :func:`greedy_rollout` as a CUDA graph, one per
+    device in ``steps``, captured on the first call of a batch shape and
+    replayed on every later step; a call of another shape or with another
+    key captures anew in its place. Without CUDA the same static step runs
+    uncaptured. ``captures``, ``replays`` and ``eager_policy_steps`` (steps
+    run uncaptured) count what it did. The :class:`Evaluator` keeps one on
+    CUDA, where each call of ``evaluate_records`` is one batch shape a
+    device; the service, whose batches run two at a time on worker
+    threads, and the tree searches, whose batches change every call, run
+    the eager loop.
+
+    A device's step tensors are shared by its calls, so they must follow
+    one another on one stream, as a device's shards do in
+    :func:`..training.sharding.run_sharded`."""
+
+    def __init__(self):
+        self.steps: Dict[torch.device, StaticPolicyStep] = {}
+        self._lock = threading.Lock()
+        self.captures = self.replays = self.eager_policy_steps = 0
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return {"captures": self.captures, "replays": self.replays,
+                    "eager_policy_steps": self.eager_policy_steps}
+
+    def bind(self, key: Hashable, policy_step: Callable,
+             encode: Optional[Callable], max_timesteps: int,
+             bufs: EvalBuffers, action_dict: Dict[str, torch.Tensor],
+             pred_rtg: torch.Tensor) -> StaticPolicyStep:
+        """The device's static step, with the call's seeded buffers and
+        first outputs copied in; captured first, in place of the device's
+        last one, where the batch shape, the encoder cache or ``key`` is
+        new. ``key`` holds whatever else the step depends on (the evaluator
+        passes its DT's weights)."""
+        dev = bufs.states.device
+        key = (tuple(bufs.states.shape),
+               bufs.state_embs is not None and encode is not None, key)
+        with self._lock:
+            s = self.steps.pop(dev, None)
+        if s is not None and s.key != key:
+            s = None   # freed before the new one is allocated
+        new = s is None
+        if new:
+            s = StaticPolicyStep.like(bufs, action_dict, pred_rtg)
+            s.key = key
+        if s.graph is None:   # uncaptured, it runs this call's functions
+            s.step = functools.partial(
+                static_policy_step, policy_step=policy_step, encode=encode,
+                max_timesteps=max_timesteps)
+        if new and dev.type == "cuda":
+            _capture(s)
+            with self._lock:
+                self.captures += 1
+        with self._lock:
+            self.steps[dev] = s
+        s.load(bufs, action_dict, pred_rtg)
+        return s
+
+    def run(self, s: StaticPolicyStep, ob: torch.Tensor, live: torch.Tensor,
+            t: int) -> None:
+        """Step ``t``: the observation and live mask copied in, the index
+        set on the device (no copy from the host), the graph replayed."""
+        s.ob.copy_(ob)
+        s.live.copy_(live)
+        s.t.fill_(t)
+        with annotate(POLICY_GRAPH):
+            if s.graph is not None:
+                s.graph.replay()
+                add_launches(s.launches)
+            else:
+                s.step(s)
+        with self._lock:
+            if s.graph is not None:
+                self.replays += 1
+            else:
+                self.eager_policy_steps += 1
+
+
 @torch.no_grad()
 def greedy_rollout(dt_apply: Callable, denoise: Callable, cfg: ModelConfig,
                    env_state: CSMRIState, bufs: EvalBuffers,
@@ -204,9 +396,11 @@ def greedy_rollout(dt_apply: Callable, denoise: Callable, cfg: ModelConfig,
                    pred_rtg: torch.Tensor, max_timesteps: int,
                    start_time: Any = 1,
                    encode: Optional[Callable] = None,
-                   dt_embed_apply: Optional[Callable] = None
+                   dt_embed_apply: Optional[Callable] = None,
+                   policy_graphs: Optional[PolicyGraphs] = None,
+                   graph_key: Hashable = None
                    ) -> Tuple[CSMRIState, torch.Tensor, torch.Tensor,
-                              EvalBuffers]:
+                              Optional[EvalBuffers]]:
     """The greedy env/policy loop over t = 0 .. max_timesteps.
 
     Returns ``(final_env_state, reward (B, 1), episode_len (B,), buffers)``;
@@ -216,13 +410,26 @@ def greedy_rollout(dt_apply: Callable, denoise: Callable, cfg: ModelConfig,
     every image has finished; the iterations it skips would change
     nothing. The loop writes into copies of ``bufs``: the tree search hands
     it buffer snapshots that sibling nodes share.
+
+    With ``policy_graphs`` each policy step is :func:`static_policy_step`
+    on that cache's static tensors for this batch (``graph_key``: see
+    :meth:`PolicyGraphs.bind`), replayed from its CUDA graph on CUDA. It
+    then returns no buffers (None): the final ones are the static step's,
+    ``policy_graphs.steps[device].bufs``, until that device's next call.
     """
     policy_step = make_policy_step(dt_apply, cfg, dt_embed_apply)
     cached = bufs.state_embs is not None and encode is not None
-    bufs = bufs.replace(
-        states=bufs.states.clone(), rtg=bufs.rtg.clone(),
-        state_embs=None if bufs.state_embs is None
-        else bufs.state_embs.clone())
+    static = None
+    if policy_graphs is None:
+        bufs = bufs.replace(
+            states=bufs.states.clone(), rtg=bufs.rtg.clone(),
+            state_embs=None if bufs.state_embs is None
+            else bufs.state_embs.clone())
+    else:
+        static = policy_graphs.bind(graph_key, policy_step, encode,
+                                    max_timesteps, bufs, action_dict,
+                                    pred_rtg)
+        bufs, action_dict = static.bufs, static.action_dict
     b, dev = env_state.batch, env_state.x.device
     start_time = torch.as_tensor(start_time, dtype=torch.long,
                                  device=dev).reshape(-1).expand(b)
@@ -253,6 +460,10 @@ def greedy_rollout(dt_apply: Callable, denoise: Callable, cfg: ModelConfig,
                 continue
 
             with annotate(POLICY_STEP):
+                if static is not None:
+                    policy_graphs.run(static, get_policy_ob(env_state), live,
+                                      t)
+                    continue
                 tw = min(t, max_timesteps - 1)
                 ob = get_policy_ob(env_state)
                 bufs.states[:, tw] = _where_rows(live, ob,
@@ -272,7 +483,8 @@ def greedy_rollout(dt_apply: Callable, denoise: Callable, cfg: ModelConfig,
                                for k in action_dict}
                 pred_rtg = torch.where(live, new_rtg, pred_rtg)
 
-    return env_state, compute_reward(env_state), ep_len, bufs
+    return (env_state, compute_reward(env_state), ep_len,
+            None if static is not None else bufs)
 
 
 def policy_forward(dt: DecisionTransformer, cfg: ModelConfig) -> Callable:
@@ -297,6 +509,13 @@ def check_policy_forward(dt: DecisionTransformer, cfg: ModelConfig,
             "DecisionTransformer with it")
 
 
+def _weights_key(dt: DecisionTransformer) -> Hashable:
+    """Every parameter's address and version. A captured policy step reads
+    the weights, K3's packed copy (whose key is a subset of this) and the
+    bfloat16 copies by address, so any change must capture anew."""
+    return tuple((p.data_ptr(), p._version) for p in dt.parameters())
+
+
 @dataclasses.dataclass
 class Evaluator:
     """Evaluation driver with the reference CLI's surface: a loop over
@@ -316,7 +535,13 @@ class Evaluator:
     local shards, one rollout each, on a copy of ``dt`` and ``denoise``
     per local device (a given ``dt_apply`` is used on every shard as it
     is); on more than one process, ``records`` are this process's slice of
-    the global batch and the outputs are gathered over the processes."""
+    the global batch and the outputs are gathered over the processes.
+
+    On CUDA each policy step replays a CUDA graph (:class:`PolicyGraphs`),
+    captured on the first call of each batch size and again after the DT's
+    weights change; :meth:`policy_graph_stats` counts captures and
+    replays. A given ``dt_apply`` is captured as it is: weights it reads
+    other than ``dt``'s must keep their storage."""
     dt: DecisionTransformer
     denoise: Callable
     cfg: ModelConfig
@@ -344,6 +569,12 @@ class Evaluator:
         if self.dt_apply is None:
             for dev in dict.fromkeys(d for d, _, _ in self._shards):
                 check_policy_forward(self.dt, self.cfg, dev)
+        self._policy_graphs = PolicyGraphs()
+
+    def policy_graph_stats(self) -> Dict[str, int]:
+        """Over this evaluator's calls: the policy-step graphs captured,
+        their replays, and the policy steps run without a graph."""
+        return self._policy_graphs.stats()
 
     def _rollout(self, dt, denoise, policy_x0, rtg0, task, env_state):
         """One shard's rollout: (final state, reward (B,),
@@ -353,6 +584,9 @@ class Evaluator:
         if self.cached_encoder:
             encode = make_state_encode(dt)
             dt_embed_apply = make_dt_embed_apply(dt_apply)
+        graphs = graph_key = None
+        if env_state.x.device.type == "cuda":
+            graphs, graph_key = self._policy_graphs, _weights_key(dt)
         with annotate(EVAL_ROLLOUT):
             old_reward = compute_reward(env_state)
             bufs, _, action_dict, pred_rtg = initial_policy_setup(
@@ -361,7 +595,8 @@ class Evaluator:
             final, reward, ep_len, _ = greedy_rollout(
                 dt_apply, denoise, self.cfg, env_state, bufs, action_dict,
                 pred_rtg, self.max_timesteps, encode=encode,
-                dt_embed_apply=dt_embed_apply)
+                dt_embed_apply=dt_embed_apply, policy_graphs=graphs,
+                graph_key=graph_key)
         return final, reward[:, 0], old_reward[:, 0], ep_len
 
     @torch.no_grad()

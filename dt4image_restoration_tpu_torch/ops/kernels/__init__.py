@@ -17,6 +17,7 @@ from typing import Dict
 
 from . import (attention, conv_block, conv_block_bf16, kspace, layernorm,
                transformer, upsample_concat)
+from ._build import add_launches, tally_launches  # noqa: F401 (graphs)
 
 KERNEL_MODULES = {"conv_block": conv_block,
                   "conv_block_bf16": conv_block_bf16, "kspace": kspace,

@@ -19,10 +19,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Sequence
+from typing import Dict, Iterable, Iterator, Mapping, Optional, Sequence
 
 import torch
 
@@ -43,6 +44,8 @@ _libs: Dict[tuple, ctypes.CDLL] = {}
 # wrappers' launch counts.
 _BUILD_LOCK = threading.Lock()
 LAUNCH_LOCK = threading.Lock()
+# The launches a thread makes inside `tally_launches`, by wrapper module.
+_tally = threading.local()
 
 
 def _nvcc() -> str:
@@ -162,6 +165,39 @@ def on_device(index: int):
     if index == torch.cuda.current_device():
         return _ALREADY_CURRENT
     return torch.cuda.device(index)
+
+
+def count_launch(module: str) -> None:
+    """Count one launch of the kernel of the wrapper module named
+    ``module`` in its ``launches``; inside :func:`tally_launches`, in this
+    thread's tally instead."""
+    tally = getattr(_tally, "counts", None)
+    if tally is not None:
+        tally[module] = tally.get(module, 0) + 1
+        return
+    mod = sys.modules[module]
+    with LAUNCH_LOCK:
+        mod.launches += 1
+
+
+@contextlib.contextmanager
+def tally_launches() -> Iterator[Dict[str, int]]:
+    """Within, this thread's launches are counted in the dict it yields (by
+    wrapper module) and not in the wrappers' ``launches``: a CUDA graph's
+    capture records launches and makes none. Each replay of the graph then
+    counts them with :func:`add_launches`."""
+    _tally.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _tally.counts = None
+
+
+def add_launches(counts: Mapping[str, int]) -> None:
+    """Count the launches a :func:`tally_launches` tallied, once more."""
+    with LAUNCH_LOCK:
+        for module, n in counts.items():
+            sys.modules[module].launches += n
 
 
 def check(rc: int, what: str) -> None:

@@ -68,7 +68,6 @@ def fused_causal_attention(q: torch.Tensor, k: torch.Tensor,
     Returns (B, H, T, D): on CUDA the transposed view of a new contiguous
     (B, T, H, D) tensor, so ``out.transpose(1, 2)`` is contiguous.
     """
-    global launches
     if not q.is_cuda:
         if q.device.type == "cpu":
             return fused_causal_attention_plain(q, k, v)
@@ -106,6 +105,5 @@ def fused_causal_attention(q: torch.Tensor, k: torch.Tensor,
                     out.data_ptr(), b, h, t, d, sb, sh, st,
                     _build.stream_handle(index))
     _build.check(rc, "fused_causal_attention")
-    with _build.LAUNCH_LOCK:
-        launches += 1
+    _build.count_launch(__name__)
     return out.transpose(1, 2)

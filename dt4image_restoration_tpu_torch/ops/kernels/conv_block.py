@@ -179,7 +179,6 @@ def conv_block(x: torch.Tensor, packed: PackedConvBlock,
     """L x [3x3 SAME conv + bias + LeakyReLU] on NCHW float32 ``x``
     (B, Cin, H, W) -> (B, F, H, W); a block packed in bfloat16 runs
     :func:`.conv_block_bf16.conv_block_bf16` on bfloat16 ``x``."""
-    global launches
     if packed.dtype == torch.bfloat16:
         return _bf16.conv_block_bf16(x, packed, negative_slope)
     if x.device.type == "cpu":
@@ -216,8 +215,7 @@ def conv_block(x: torch.Tensor, packed: PackedConvBlock,
                 w, packed.features, packed.layers, float(negative_slope),
                 _build.stream_handle(x.device))
     _build.check(rc, "conv_block")
-    with _build.LAUNCH_LOCK:
-        launches += 1
+    _build.count_launch(__name__)
     return out
 
 

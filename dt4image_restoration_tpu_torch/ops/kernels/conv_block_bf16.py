@@ -268,7 +268,6 @@ def run_build(x: torch.Tensor, packed, negative_slope: float = 0.2,
     macros ``defines`` (the ``STRIP_`` parts of
     ``perf/conv_block_bf16_parts.py``; none for the kernel itself) on a
     CUDA tensor."""
-    global launches
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype != torch.bfloat16 or packed.tc_weights.dtype != torch.bfloat16 \
@@ -306,6 +305,5 @@ def run_build(x: torch.Tensor, packed, negative_slope: float = 0.2,
                 packed.features, grid, float(negative_slope),
                 _build.stream_handle(index))
     _build.check(rc, "conv_block_bf16")
-    with _build.LAUNCH_LOCK:
-        launches += 1
+    _build.count_launch(__name__)
     return out

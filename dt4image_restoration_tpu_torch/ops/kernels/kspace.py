@@ -45,7 +45,6 @@ def kspace_consistency_kernel(z: torch.Tensor, y0: torch.Tensor,
       mu: (B,) float32.
     Returns a new complex64 tensor shaped like ``z``.
     """
-    global launches
     if z.device.type == "cpu":
         return kspace_consistency_plain(z, y0, mask, mu)
     if z.device.type != "cuda":
@@ -74,6 +73,5 @@ def kspace_consistency_kernel(z: torch.Tensor, y0: torch.Tensor,
                 out.data_ptr(), n, n // z.shape[0],
                 _build.stream_handle(z.device))
     _build.check(rc, "kspace_consistency")
-    with _build.LAUNCH_LOCK:
-        launches += 1
+    _build.count_launch(__name__)
     return out

@@ -52,7 +52,6 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     ``bias``. On CUDA, E must be a multiple of 4 up to
     :data:`MAX_FEATURES` and every tensor contiguous and 16-byte aligned.
     Returns a new tensor shaped like ``x``."""
-    global launches
     if not x.is_cuda:
         if x.device.type == "cpu":
             return layernorm_plain(x, scale, bias, eps)
@@ -89,6 +88,5 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     out.data_ptr(), rows, e, eps,
                     _build.stream_handle(index))
     _build.check(rc, "layernorm")
-    with _build.LAUNCH_LOCK:
-        launches += 1
+    _build.count_launch(__name__)
     return out

@@ -184,7 +184,6 @@ def fused_dt_decode(tokens: torch.Tensor, packed: Mapping[str, torch.Tensor],
     On the card the kernel reads ``packed["tc_w"]``
     (:func:`pack_dt_fragments`, which ``DecisionTransformer.packed_weights``
     keeps); where that key is missing it is packed for this call."""
-    global launches
     if tokens.device.type == "cpu":
         return fused_dt_decode_plain(tokens, packed, n_blocks, n_heads)
     if tokens.device.type != "cuda":
@@ -231,6 +230,5 @@ def fused_dt_decode(tokens: torch.Tensor, packed: Mapping[str, torch.Tensor],
         raise RuntimeError(f"dt_decode: a cluster of {CLUSTER} blocks with "
                            "their shared memory does not fit on this card")
     _build.check(rc, "dt_decode")
-    with _build.LAUNCH_LOCK:
-        launches += 1
+    _build.count_launch(__name__)
     return out

@@ -64,7 +64,6 @@ def upsample_concat(a: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
     Wa) upsampled 2x (bilinear, align_corners=True) and padded to (Hs, Ws)
     -> a new (B, Cs + Ca, Hs, Ws) tensor. On CUDA both must be float32 or
     both bfloat16, contiguous, on one device."""
-    global launches
     if not a.is_cuda:
         if a.device.type == "cpu":
             return upsample_concat_plain(a, skip)
@@ -91,6 +90,5 @@ def upsample_concat(a: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
                     cs, ca, ha, wa, hs, ws, (hs - 2 * ha) // 2,
                     (ws - 2 * wa) // 2, _build.stream_handle(index))
     _build.check(rc, "upsample_concat")
-    with _build.LAUNCH_LOCK:
-        launches += 1
+    _build.count_launch(__name__)
     return out

@@ -1228,6 +1228,118 @@ def test_mesh_copies_cpu_models_with_packed_caches_to_card(dev, tmp_path):
                                atol=0.01)
 
 
+# --- the evaluator's policy step as a CUDA graph ---------------------------
+
+def _graph_records(batch):
+    """``batch`` records of seven synthetic slices, the tasks in turn, as
+    the evaluation dataset yields them."""
+    from dt4image_restoration_tpu_torch.data import make_mat_record
+    recs = [make_mat_record(seed=i) for i in range(7)]
+    out = []
+    for i in range(batch):
+        rec = dict(recs[i % 7])
+        states = rec["x0"][..., 0].reshape(1, -1).astype(np.float32)
+        rec["x0"] = np.clip(rec["x0"], 0, None)
+        out.append(((states, np.full((1, 1), 10.0, np.float32),
+                     np.zeros(3, np.float32), np.full((1, 1), i % 9)), rec))
+    return out
+
+
+def _graph_models(dev, dtype="float32"):
+    cfg = ModelConfig(block_size=18, dtype=dtype)
+    unet = UNetDenoiser(dtype=dtype)
+    unet.load_state_dict(random_unet_state_dict(0))
+    return cfg, _long_window_policy(cfg, dev), \
+        unet.eval().requires_grad_(False).to(dev)
+
+
+def _eager_eval(dt, unet, cfg, records, dev, max_timesteps=30):
+    """``Evaluator.evaluate_records``' rollout through ``greedy_rollout``
+    without graphs: (final state, reward (B,), episode lengths (B,))."""
+    from dt4image_restoration_tpu_torch.env import reset_from_mat
+    from dt4image_restoration_tpu_torch.inference import (
+        greedy_rollout, initial_policy_setup, policy_forward)
+    from dt4image_restoration_tpu_torch.models import (make_dt_embed_apply,
+                                                       make_state_encode)
+    x0 = torch.from_numpy(np.concatenate([r[0][0] for r in records]))
+    rtg0 = torch.from_numpy(np.stack([r[0][1].reshape(())
+                                      for r in records]))
+    task = torch.from_numpy(np.stack([np.int64(r[0][3].reshape(()))
+                                      for r in records]))
+    mats = {k: np.concatenate([r[1][k] for r in records])
+            for k in ("x0", "y0", "mask", "gt")}
+    apply = policy_forward(dt, cfg)
+    encode = make_state_encode(dt)
+    with torch.no_grad():
+        bufs, _, adict, prtg = initial_policy_setup(
+            apply, cfg, x0.to(dev), rtg0.to(dev), task.to(dev),
+            max_timesteps, encode=encode)
+    final, reward, ep_len, _ = greedy_rollout(
+        apply, unet, cfg, reset_from_mat(mats, device=dev), bufs, adict,
+        prtg, max_timesteps, encode=encode,
+        dt_embed_apply=make_dt_embed_apply(apply))
+    return final, reward[:, 0].cpu().numpy(), ep_len.cpu().numpy()
+
+
+@pytest.mark.parametrize("dtype,batch", [("float32", 1), ("float32", 63),
+                                         ("bfloat16", 63)])
+def test_evaluator_policy_graph_matches_eager_rollout_on_card(dev, dtype,
+                                                              batch):
+    """The evaluator, whose policy steps replay a CUDA graph, against
+    ``greedy_rollout``'s eager loop on the same models and slices: equal
+    episode lengths, and images bit-equal (a float32 gap, if any, under
+    1e-6, and reported)."""
+    cfg, dt, unet = _graph_models(dev, dtype)
+    records = _graph_records(batch)
+    ev = Evaluator(dt=dt, denoise=unet, cfg=cfg, max_timesteps=30,
+                   device=dev)
+    got = ev.evaluate_records(records)
+    final, reward, ep_len = _eager_eval(dt, unet, cfg, records, dev)
+    assert ev.policy_graph_stats() == {"captures": 1, "replays": 29,
+                                       "eager_policy_steps": 0}
+    np.testing.assert_array_equal(got["episode_len"], ep_len)
+    gap = float((got["final_state"].x - final.x).abs().max())
+    print(f"policy graph, {dtype} B={batch}: largest pixel gap {gap:.3e}, "
+          f"reward gap {np.abs(got['reward'] - reward).max():.3e}")
+    assert gap == 0.0 if dtype == "bfloat16" else gap <= 1e-6
+
+
+def test_evaluator_policy_graph_is_captured_once_per_batch_and_weights(
+        dev):
+    """Two calls of one batch size capture once and replay 29 policy steps
+    each; a new batch size captures its own graph; a change of the DT's
+    weights in place captures anew, and the result follows the new
+    weights. No policy step runs without its graph. K3's launch count is
+    what the card ran: the setup's two forwards, the warm-up step's two
+    before a capture, none for the capture, two a replay."""
+    cfg, dt, unet = _graph_models(dev)
+    ev = Evaluator(dt=dt, denoise=unet, cfg=cfg, max_timesteps=30,
+                   device=dev)
+    two, three = _graph_records(2), _graph_records(3)
+    kernels.reset_launch_counts()
+    first = ev.evaluate_records(two)
+    assert kernels.launch_counts()["dt_decode"] == 2 + 2 + 2 * 29
+    kernels.reset_launch_counts()
+    again = ev.evaluate_records(two)
+    assert kernels.launch_counts()["dt_decode"] == 2 + 2 * 29
+    assert ev.policy_graph_stats() == {"captures": 1, "replays": 58,
+                                       "eager_policy_steps": 0}
+    assert torch.equal(first["final_state"].x, again["final_state"].x)
+    ev.evaluate_records(three)
+    assert ev.policy_graph_stats() == {"captures": 2, "replays": 87,
+                                       "eager_policy_steps": 0}
+    with torch.no_grad():
+        dt.blocks[0].fc.weight.mul_(1.5)
+        dt.state_encoder.dense.weight.mul_(1.5)
+    moved = ev.evaluate_records(two)
+    assert ev.policy_graph_stats() == {"captures": 3, "replays": 116,
+                                       "eager_policy_steps": 0}
+    final, _, ep_len = _eager_eval(dt, unet, cfg, two, dev)
+    np.testing.assert_array_equal(moved["episode_len"], ep_len)
+    assert float((moved["final_state"].x - final.x).abs().max()) <= 1e-6
+    assert not torch.equal(moved["final_state"].x, first["final_state"].x)
+
+
 def test_validate_parity_selftest_on_card(dev, capsys):
     """The parity harness's ``--selftest`` with the port on the card: every
     row within 0.05 dB of the oracle, the fused policy's kernels (K1, K2,

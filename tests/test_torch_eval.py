@@ -6,6 +6,8 @@ right at the stop threshold, so tiny numeric differences could flip episode
 lengths. The evaluator cases therefore set the T column of the action
 head's bias, identically in both frameworks, to +3 (every image stops at
 once) or -3 (every image runs all 30 steps)."""
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -285,3 +287,135 @@ def test_greedy_rollout_mixed_stops_matches_jax(eval_dirs, denoisers):
         np.testing.assert_allclose(getattr(tbufs, name).numpy(),
                                    np.asarray(getattr(jbufs, name)),
                                    rtol=1e-3, atol=1e-4)
+
+
+# --- the evaluator's static policy step (a CUDA graph on the card) ---------
+
+STATIC_MAXT = 14   # past both context lengths, so that the windows slide
+
+
+def _static_case(denoisers, eval_dirs, block_size, batch, cached, t_bias,
+                 policy_graphs=None):
+    """One rollout of ``batch`` slices through ``greedy_rollout``, eager or
+    through ``policy_graphs``; the policy's stop output biased by
+    ``t_bias``."""
+    model_den, _ = denoisers
+    cfg = ModelConfig(**dict(CFG_KW, block_size=block_size))
+    torch.manual_seed(0)
+    dt = DecisionTransformer(cfg).eval().requires_grad_(False)
+    with torch.no_grad():
+        dt.predict_action.bias[0] = t_bias   # norm mode: T is column 0
+    records = [EvaluationDataset(d, 10.0)[i] for d in eval_dirs
+               for i in range(2)][:batch]
+    x0 = torch.from_numpy(np.concatenate([r[0][0] for r in records]))
+    rtg0 = torch.from_numpy(np.stack([r[0][1].reshape(())
+                                      for r in records]))
+    task = torch.from_numpy(np.stack([r[0][3].reshape(())
+                                      for r in records]))
+    mats = {k: np.concatenate([r[1][k] for r in records])
+            for k in ("x0", "y0", "mask", "gt")}
+    apply = tev.policy_forward(dt, cfg)
+    encode = tdt.make_state_encode(dt) if cached else None
+    embed = tdt.make_dt_embed_apply(apply) if cached else None
+    bufs, _, adict, prtg = tev.initial_policy_setup(
+        apply, cfg, x0, rtg0, task, STATIC_MAXT, encode=encode)
+    return tev.greedy_rollout(
+        apply, model_den, cfg, pnp.reset_from_mat(mats, device="cpu"),
+        bufs, adict, prtg, STATIC_MAXT, encode=encode, dt_embed_apply=embed,
+        policy_graphs=policy_graphs, graph_key="weights")
+
+
+@pytest.mark.parametrize("t_bias", [-3.0, -1.0], ids=["no_stop", "stops"])
+@pytest.mark.parametrize("cached", [True, False], ids=["cached", "uncached"])
+@pytest.mark.parametrize("block_size", [18, 36])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_static_policy_step_is_bit_equal_to_the_eager_loop(
+        eval_dirs, denoisers, batch, block_size, cached, t_bias):
+    """The graph-ready policy step (static tensors, the step index on the
+    device, one-slot writes), run uncaptured on the CPU, gives the eager
+    loop's final states, rewards, episode lengths and buffers bit for bit,
+    with sliding windows and with images stopping at different steps."""
+    eager = _static_case(denoisers, eval_dirs, block_size, batch, cached,
+                         t_bias)
+    graphs = tev.PolicyGraphs()
+    static = _static_case(denoisers, eval_dirs, block_size, batch, cached,
+                          t_bias, graphs)
+    ep_len = eager[2].tolist()
+    if t_bias < -2:
+        assert ep_len == [STATIC_MAXT] * batch
+    else:
+        assert min(ep_len) < STATIC_MAXT
+        assert batch == 1 or len(set(ep_len)) > 1
+    assert torch.equal(static[2], eager[2])
+    assert torch.equal(static[1], eager[1])
+    for f in dataclasses.fields(pnp.CSMRIState):
+        assert torch.equal(getattr(static[0], f.name),
+                           getattr(eager[0], f.name)), f.name
+    assert static[3] is None   # the graph path returns no buffers
+    final_bufs = graphs.steps[torch.device("cpu")].bufs
+    for f in dataclasses.fields(tev.EvalBuffers):
+        got, want = getattr(final_bufs, f.name), getattr(eager[3], f.name)
+        assert (got is None) == (want is None), f.name
+        assert got is None or torch.equal(got, want), f.name
+    # One policy step at t = 1 .. the last live one, none captured.
+    assert graphs.stats() == {"captures": 0, "replays": 0,
+                              "eager_policy_steps": max(ep_len) - 1}
+
+
+def _seeded(b, dev="cpu", maxt=8, s=16, cached=True):
+    bufs = tev.EvalBuffers(
+        states=torch.rand(b, maxt, s), actions=torch.rand(b, maxt, 3),
+        rtg=torch.rand(b, maxt, 1), task=torch.arange(b),
+        state_embs=torch.rand(b, maxt, 4) if cached else None)
+    return bufs, {"T": torch.rand(b), "mu": torch.rand(b)}, torch.rand(b)
+
+
+def test_policy_graphs_keep_one_static_step_per_batch_and_weights():
+    """A device keeps one static step, reused from call to call with the
+    call's buffers copied in; a new batch shape, encoder cache or key
+    (the weights) makes a new one in its place."""
+    graphs = tev.PolicyGraphs()
+
+    def bind(b, key="w0", cached=True):
+        bufs, adict, prtg = _seeded(b, cached=cached)
+        s = graphs.bind(key, None, (lambda ob: ob) if cached else None, 8,
+                        bufs, adict, prtg)
+        assert torch.equal(s.bufs.states, bufs.states)
+        assert s.bufs.states.data_ptr() != bufs.states.data_ptr()
+        assert torch.equal(s.action_dict["mu"], adict["mu"])
+        assert torch.equal(s.pred_rtg, prtg)
+        assert (s.bufs.state_embs is None) == (not cached)
+        assert graphs.steps == {torch.device("cpu"): s}
+        return s
+
+    first = bind(3)
+    assert bind(3) is first
+    assert bind(3, cached=False) is not first
+    third = bind(3, key="w1")
+    assert third is not first
+    fourth = bind(4, key="w1")
+    assert bind(4, key="w1") is fourth
+    assert bind(3, key="w1") is not third   # batch 4 took its place
+    assert graphs.stats() == {"captures": 0, "replays": 0,
+                              "eager_policy_steps": 0}
+
+
+def test_cpu_evaluator_runs_the_eager_loop(eval_dirs, denoisers,
+                                           monkeypatch):
+    """Without CUDA the evaluator hands ``greedy_rollout`` no graphs."""
+    model_den, _ = denoisers
+    handed = []
+    real = tev.greedy_rollout
+
+    def spy(*args, **kw):
+        handed.append(kw.get("policy_graphs"))
+        return real(*args, **kw)
+    monkeypatch.setattr(tev, "greedy_rollout", spy)
+    cfg = ModelConfig(**CFG_KW)
+    dt = DecisionTransformer(cfg).eval().requires_grad_(False)
+    ev = Evaluator(dt=dt, denoise=model_den, cfg=cfg, max_timesteps=6,
+                   device="cpu")
+    ev.evaluate_records([EvaluationDataset(eval_dirs[0], 10.0)[0]])
+    assert handed == [None]
+    assert ev.policy_graph_stats() == {"captures": 0, "replays": 0,
+                                       "eager_policy_steps": 0}

@@ -9,6 +9,8 @@ concat). The CUDA kernels
 themselves are held against their plain versions on the card by
 tests/test_torch_cuda.py.
 """
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -726,3 +728,27 @@ def test_unet_forward_on_cpu_counts_no_launches():
         with torch.no_grad():
             model(x, 0.1)
         assert not any(kernels.launch_counts().values()), mode
+
+
+def test_a_tallied_capture_counts_its_launches_at_each_replay():
+    """Inside ``tally_launches`` (a CUDA graph's capture, which launches
+    nothing) a thread's wrapper calls go to its tally and not to the
+    counters, while another thread's still count; ``add_launches`` counts
+    the tally once more at each replay."""
+    from dt4image_restoration_tpu_torch.ops.kernels import _build
+    kernels.reset_launch_counts()
+    with kernels.tally_launches() as tally:
+        _build.count_launch(k3.__name__)
+        _build.count_launch(k3.__name__)
+        other = threading.Thread(target=_build.count_launch,
+                                 args=(k1.__name__,))
+        other.start()
+        other.join()
+    assert tally == {k3.__name__: 2}
+    assert kernels.launch_counts()["dt_decode"] == 0
+    assert kernels.launch_counts()["conv_block"] == 1
+    _build.count_launch(k3.__name__)   # counted again once out of it
+    for _ in range(3):                 # three replays
+        kernels.add_launches(tally)
+    assert kernels.launch_counts()["dt_decode"] == 7
+    kernels.reset_launch_counts()

@@ -17,7 +17,9 @@ import torch
 from dt4image_restoration_tpu_torch.config import ModelConfig
 from dt4image_restoration_tpu_torch.data import make_mat_record
 from dt4image_restoration_tpu_torch.env import reset_from_mat
-from dt4image_restoration_tpu_torch.inference import (greedy_rollout,
+from dt4image_restoration_tpu_torch.inference import (Evaluator,
+                                                      PolicyGraphs,
+                                                      greedy_rollout,
                                                       initial_policy_setup)
 from dt4image_restoration_tpu_torch.models import (DecisionTransformer,
                                                    UNetDenoiser,
@@ -28,10 +30,11 @@ from dt4image_restoration_tpu_torch.models import (DecisionTransformer,
 from dt4image_restoration_tpu_torch.serving import (RestorationRequest,
                                                     RestorationService)
 from dt4image_restoration_tpu_torch.utils import profiling
+from dt4image_restoration_tpu_torch.utils.device import resolve_device
 from dt4image_restoration_tpu_torch.utils.profiling import (
-    ENV_ADMM, EVAL_STEP, EVAL_SYNC, POLICY_STEP, SERVE_FILL, SERVE_LAUNCH,
-    SERVE_PERMIT, SERVE_RESOLVE, SERVE_SETTLE, SERVE_WAIT, TRACE_FILE, UNET,
-    annotate, trace_if_enabled)
+    ENV_ADMM, EVAL_STEP, EVAL_SYNC, POLICY_GRAPH, POLICY_STEP, SERVE_FILL,
+    SERVE_LAUNCH, SERVE_PERMIT, SERVE_RESOLVE, SERVE_SETTLE, SERVE_WAIT,
+    TRACE_FILE, UNET, annotate, trace_if_enabled)
 from torch_port_common import one_torch_thread  # noqa: F401
 
 SIZE = 48
@@ -53,7 +56,7 @@ def models():
     return dt, den.eval().requires_grad_(False)
 
 
-def _rollout(models):
+def _rollout(models, policy_graphs=None):
     dt, den = models
     recs = [make_mat_record(size=SIZE, seed=i) for i in range(BATCH)]
     mats = {k: np.concatenate([r[k] for r in recs])
@@ -68,15 +71,18 @@ def _rollout(models):
     final, reward, ep_len, _ = greedy_rollout(
         apply, den, CFG, reset_from_mat(mats, device="cpu"), bufs,
         action_dict, pred_rtg, MAXT, encode=encode,
-        dt_embed_apply=make_dt_embed_apply(apply))
+        dt_embed_apply=make_dt_embed_apply(apply),
+        policy_graphs=policy_graphs)
     return final.x, reward, ep_len
 
 
-def _profiled(fn, tmp_path):
+def _profiled(fn, tmp_path, cuda=False):
     """``fn()``'s result and the Chrome trace events of a CPU profile of
-    it."""
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+    it (and of the card's activity, with ``cuda``)."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
         out = fn()
     path = str(tmp_path / "trace.json")
     prof.export_chrome_trace(path)
@@ -119,6 +125,68 @@ def test_a_rollout_records_each_span_once_per_step_and_nested(models,
     assert per_step == [1] + [2] * (MAXT - 1) + [3]
     for s in syncs:
         assert not _inside(s, admm) and not _inside(s, policy)
+
+
+def _policy_spans_nested(events):
+    """The policy-step and policy-graph spans, each graph span inside one
+    policy step and each policy step inside one loop iteration."""
+    steps, admm = _spans(events, EVAL_STEP), _spans(events, ENV_ADMM)
+    policy, graph = _spans(events, POLICY_STEP), _spans(events, POLICY_GRAPH)
+    for p in policy:
+        assert len(_inside(p, steps)) == 1 and not _inside(p, admm)
+    for g in graph:
+        assert len(_inside(g, policy)) == 1
+    return policy, graph
+
+
+def test_a_rollout_through_policy_graphs_nests_each_replay_in_its_step(
+        models, tmp_path):
+    """Through the evaluator's static step (uncaptured on the CPU) the
+    policy step is still one span per step, nested as before, with the
+    step's replay inside it; the outputs are the eager loop's."""
+    eager = _rollout(models)
+    graphs = PolicyGraphs()
+    out, events = _profiled(lambda: _rollout(models, graphs), tmp_path)
+    for a, b in zip(eager, out):
+        assert torch.equal(a, b)
+    policy, graph = _policy_spans_nested(events)
+    assert len(policy) == len(graph) == MAXT - 1
+    assert len(_spans(events, EVAL_STEP)) == MAXT + 1
+    assert graphs.stats()["eager_policy_steps"] == MAXT - 1
+
+
+@pytest.mark.cuda
+def test_each_policy_step_on_the_card_replays_its_graph_once(tmp_path):
+    """On the card the evaluator's policy step is one span a step with one
+    replay of its graph inside it, and the replayed kernels (K3's among
+    them) are on the profiler's device trace."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    dev = resolve_device("cuda")
+    cfg = ModelConfig(block_size=18)
+    dt = DecisionTransformer(cfg).eval().requires_grad_(False)
+    with torch.no_grad():
+        dt.predict_action.bias[0] = -3.0   # T: no early stops
+    den = UNetDenoiser()
+    den.load_state_dict(random_unet_state_dict(seed=3))
+    ev = Evaluator(dt=dt.to(dev), denoise=den.eval().requires_grad_(False)
+                   .to(dev), cfg=cfg, max_timesteps=MAXT, device=dev)
+    rec = make_mat_record(seed=0)
+    records = [((rec["x0"][..., 0].reshape(1, -1).astype(np.float32),
+                 np.full((1, 1), 0.6, np.float32), np.zeros(3, np.float32),
+                 np.full((1, 1), 2)), rec)] * BATCH
+    ev.evaluate_records(records)               # captures the graph
+    m, events = _profiled(lambda: ev.evaluate_records(records), tmp_path,
+                          cuda=True)
+    assert m["episode_len"].tolist() == [MAXT] * BATCH
+    policy, graph = _policy_spans_nested(events)
+    assert len(policy) == len(graph) == MAXT - 1
+    assert ev.policy_graph_stats() == {
+        "captures": 1, "replays": 2 * (MAXT - 1), "eager_policy_steps": 0}
+    k3 = [e for e in events if e.get("cat") == "kernel"
+          and "dt_decode" in e.get("name", "")]
+    # Two eager forwards of the setup, two replayed ones a policy step.
+    assert len(k3) == 2 + 2 * (MAXT - 1)
 
 
 def test_outputs_are_bit_equal_with_the_profiler_on_and_off(models,

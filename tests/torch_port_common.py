@@ -1,11 +1,11 @@
 """Shared set-up of the port's tests: one random U-Net's weights in the
 port's ``UNetDenoiser`` and in a JAX ``UNet`` of the same width, and a
-fixture that keeps PyTorch to one CPU thread."""
-import jax.numpy as jnp
+fixture that keeps PyTorch to one CPU thread. It imports JAX only inside
+:func:`shared_denoisers`, so that test files marked for the card can use
+the fixture where JAX is not installed."""
 import pytest
 import torch
 
-from dt4image_restoration_tpu.models.unet import UNet as JUNet
 from dt4image_restoration_tpu_torch.models import (UNetDenoiser,
                                                    random_unet_state_dict)
 
@@ -41,6 +41,8 @@ def jax_unet_params(sd):
 def shared_denoisers(seed: int = 4, base: int = 8):
     """``(port UNetDenoiser, jax denoise(img NHWC, sigma (B,)))`` on the
     same He-scaled random weights."""
+    import jax.numpy as jnp
+    from dt4image_restoration_tpu.models.unet import UNet as JUNet
     sd = random_unet_state_dict(seed=seed, base_channels=base)
     model = UNetDenoiser(base)
     model.load_state_dict(sd)
