@@ -2,7 +2,7 @@
 
 Counterpart of the JAX package's ``inference/evaluator.py``: the env step
 and the two DT forwards of every policy step, batched over images, run
-eagerly on the device. It keeps the reference quirks the JAX package
+on the device. It keeps the reference quirks the JAX package
 documents, which published-checkpoint outputs depend on:
 
   * sliding window: ``[:ctx]`` while ``t < ctx`` else ``[t-ctx:t]``; the
@@ -14,11 +14,12 @@ documents, which published-checkpoint outputs depend on:
   * the stop action ``T > 0.5`` freezes an image through the env's done
     mask; the loop ends once every image has finished.
 
-On CUDA the :class:`Evaluator` runs each policy step as one replay of a
-CUDA graph (:class:`PolicyGraphs`): the step index lives on the device and
-the step reads and writes static tensors, so the host launches a few copies
-and a replay in place of about a hundred small launches. The service and
-the tree searches call :func:`greedy_rollout` without graphs.
+Every policy step of the loop is :func:`static_policy_step`: it reads and
+writes static tensors in place, with the step index on the device. On CUDA
+the :class:`Evaluator` replays it from a CUDA graph (:class:`PolicyGraphs`),
+so the host launches a few copies and a replay in place of about a hundred
+small launches; the service and the tree searches run it uncaptured, on
+copies of their buffers.
 """
 from __future__ import annotations
 
@@ -112,18 +113,17 @@ def make_policy_step(dt_apply: Callable, cfg: ModelConfig,
         start = torch.clamp(t - ctx, min=0)
         timesteps = start[:, None] + torch.arange(ctx, device=dev)[None]
         task = bufs.task[:, None].expand(b, ctx)
-
         if bufs.state_embs is not None and dt_embed_apply is not None:
-            def forward(actions_buf):
-                return dt_embed_apply(
-                    _take(bufs.rtg, timesteps), _take(bufs.state_embs,
-                                                      timesteps),
-                    timesteps, task, _take(actions_buf, timesteps))
+            apply, state_buf = dt_embed_apply, bufs.state_embs
         else:
-            def forward(actions_buf):
-                return dt_apply(
-                    _take(bufs.rtg, timesteps), _take(bufs.states, timesteps),
-                    timesteps, task, _take(actions_buf, timesteps))
+            apply, state_buf = dt_apply, bufs.states
+        # Only the action window differs between the two forwards.
+        rtg_w, state_w = _take(bufs.rtg, timesteps), _take(state_buf,
+                                                           timesteps)
+
+        def forward(actions_buf):
+            return apply(rtg_w, state_w, timesteps, task,
+                         _take(actions_buf, timesteps))
 
         out = forward(bufs.actions)
         read_idx = torch.clamp(t, max=ctx - 1)
@@ -233,22 +233,21 @@ class StaticPolicyStep:
     launches: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     @classmethod
-    def like(cls, bufs: EvalBuffers, action_dict: Dict[str, torch.Tensor],
-             pred_rtg: torch.Tensor) -> "StaticPolicyStep":
-        """Zeroed static tensors of the shapes of a seeded batch."""
-        z = torch.zeros_like
+    def copy_of(cls, bufs: EvalBuffers, action_dict: Dict[str, torch.Tensor],
+                pred_rtg: torch.Tensor, step: Callable
+                ) -> "StaticPolicyStep":
+        """Static tensors holding copies of a seeded batch's buffers and
+        first outputs, none shared with the caller, and no image live."""
         dev = bufs.states.device
         return cls(
-            bufs=EvalBuffers(
-                states=z(bufs.states), actions=z(bufs.actions),
-                rtg=z(bufs.rtg), task=z(bufs.task),
-                state_embs=None if bufs.state_embs is None
-                else z(bufs.state_embs)),
-            action_dict={k: z(v) for k, v in action_dict.items()},
-            pred_rtg=z(pred_rtg), ob=z(bufs.states[:, 0]),
+            bufs=bufs.replace(**{k: v.clone() for k, v in vars(bufs).items()
+                                 if v is not None}),
+            action_dict={k: v.clone() for k, v in action_dict.items()},
+            pred_rtg=pred_rtg.clone(),
+            ob=torch.zeros_like(bufs.states[:, 0]),
             live=torch.zeros(bufs.states.shape[0], dtype=torch.bool,
                              device=dev),
-            t=torch.zeros(1, dtype=torch.long, device=dev))
+            t=torch.zeros(1, dtype=torch.long, device=dev), step=step)
 
     def load(self, bufs: EvalBuffers, action_dict: Dict[str, torch.Tensor],
              pred_rtg: torch.Tensor) -> None:
@@ -260,6 +259,19 @@ class StaticPolicyStep:
         for k, v in self.action_dict.items():
             v.copy_(action_dict[k])
         self.pred_rtg.copy_(pred_rtg)
+
+    def run(self, ob: torch.Tensor, live: torch.Tensor, t: int) -> None:
+        """Step ``t``: the observation and live mask copied in, the index
+        set on the device (no copy from the host), the graph replayed or,
+        uncaptured, the step run."""
+        self.ob.copy_(ob)
+        self.live.copy_(live)
+        self.t.fill_(t)
+        if self.graph is not None:
+            self.graph.replay()
+            add_launches(self.launches)
+        else:
+            self.step(self)
 
 
 def _write_slot(buf: torch.Tensor, slot: torch.Tensor, live: torch.Tensor,
@@ -274,14 +286,16 @@ def static_policy_step(s: StaticPolicyStep, policy_step: Callable,
                        encode: Optional[Callable], max_timesteps: int
                        ) -> None:
     """One policy step of :func:`greedy_rollout` on ``s``'s tensors, in
-    place, with the step index ``s.t`` on the device: the same operations
-    on the same values as the eager loop, without a host read, so that it
-    can be captured."""
+    place, with the step index ``s.t`` on the device and no host read, so
+    that it can be captured: the observation, the RTG and (where the
+    buffers carry the cache) the observation's encoding written at the
+    step's slot, the two DT forwards, and their outputs merged into the
+    live images' rows."""
     bufs, live = s.bufs, s.live
     slot = s.t.clamp(max=max_timesteps - 1)
     _write_slot(bufs.states, slot, live, s.ob)
     _write_slot(bufs.rtg, slot, live, s.pred_rtg[:, None])
-    if bufs.state_embs is not None and encode is not None:
+    if bufs.state_embs is not None:
         _write_slot(bufs.state_embs, slot, live, encode(s.ob))
     _, new_dict, new_rtg, stepped = policy_step(bufs, s.t)
     bufs.actions.copy_(_where_rows(live, stepped.actions, bufs.actions))
@@ -320,7 +334,7 @@ class PolicyGraphs:
     CUDA, where each call of ``evaluate_records`` is one batch shape a
     device; the service, whose batches run two at a time on worker
     threads, and the tree searches, whose batches change every call, run
-    the eager loop.
+    a static step of their own, uncaptured.
 
     A device's step tensors are shared by its calls, so they must follow
     one another on one stream, as a device's shards do in
@@ -336,52 +350,41 @@ class PolicyGraphs:
             return {"captures": self.captures, "replays": self.replays,
                     "eager_policy_steps": self.eager_policy_steps}
 
-    def bind(self, key: Hashable, policy_step: Callable,
-             encode: Optional[Callable], max_timesteps: int,
+    def bind(self, key: Hashable, step: Callable[[StaticPolicyStep], None],
              bufs: EvalBuffers, action_dict: Dict[str, torch.Tensor],
              pred_rtg: torch.Tensor) -> StaticPolicyStep:
         """The device's static step, with the call's seeded buffers and
-        first outputs copied in; captured first, in place of the device's
+        first outputs copied in; ``step`` (:func:`static_policy_step` bound
+        to the call's functions) captured first, in place of the device's
         last one, where the batch shape, the encoder cache or ``key`` is
         new. ``key`` holds whatever else the step depends on (the evaluator
         passes its DT's weights)."""
         dev = bufs.states.device
-        key = (tuple(bufs.states.shape),
-               bufs.state_embs is not None and encode is not None, key)
+        key = (tuple(bufs.states.shape), bufs.state_embs is not None, key)
         with self._lock:
             s = self.steps.pop(dev, None)
         if s is not None and s.key != key:
             s = None   # freed before the new one is allocated
-        new = s is None
-        if new:
-            s = StaticPolicyStep.like(bufs, action_dict, pred_rtg)
+        if s is None:
+            s = StaticPolicyStep.copy_of(bufs, action_dict, pred_rtg, step)
             s.key = key
-        if s.graph is None:   # uncaptured, it runs this call's functions
-            s.step = functools.partial(
-                static_policy_step, policy_step=policy_step, encode=encode,
-                max_timesteps=max_timesteps)
-        if new and dev.type == "cuda":
-            _capture(s)
-            with self._lock:
-                self.captures += 1
+            if dev.type == "cuda":
+                _capture(s)
+                with self._lock:
+                    self.captures += 1
+        elif s.graph is None:   # uncaptured, it runs this call's functions
+            s.step = step
         with self._lock:
             self.steps[dev] = s
+        # After the capture, whose warm-up and capture write the tensors.
         s.load(bufs, action_dict, pred_rtg)
         return s
 
     def run(self, s: StaticPolicyStep, ob: torch.Tensor, live: torch.Tensor,
             t: int) -> None:
-        """Step ``t``: the observation and live mask copied in, the index
-        set on the device (no copy from the host), the graph replayed."""
-        s.ob.copy_(ob)
-        s.live.copy_(live)
-        s.t.fill_(t)
+        """:meth:`StaticPolicyStep.run` in its span, counted."""
         with annotate(POLICY_GRAPH):
-            if s.graph is not None:
-                s.graph.replay()
-                add_launches(s.launches)
-            else:
-                s.step(s)
+            s.run(ob, live, t)
         with self._lock:
             if s.graph is not None:
                 self.replays += 1
@@ -400,36 +403,42 @@ def greedy_rollout(dt_apply: Callable, denoise: Callable, cfg: ModelConfig,
                    policy_graphs: Optional[PolicyGraphs] = None,
                    graph_key: Hashable = None
                    ) -> Tuple[CSMRIState, torch.Tensor, torch.Tensor,
-                              Optional[EvalBuffers]]:
+                              EvalBuffers]:
     """The greedy env/policy loop over t = 0 .. max_timesteps.
 
-    Returns ``(final_env_state, reward (B, 1), episode_len (B,), buffers)``;
-    ``episode_len`` is the iteration at which each image finished (stop
-    action or ``max_timesteps``). Iterations before ``start_time`` (scalar
-    or per-image) are no-ops for that image. The loop stops as soon as
-    every image has finished; the iterations it skips would change
-    nothing. The loop writes into copies of ``bufs``: the tree search hands
-    it buffer snapshots that sibling nodes share.
+    Returns ``(final_env_state, reward (B, 1), episode_len (B,), final
+    buffers)``; ``episode_len`` is the iteration at which each image
+    finished (stop action or ``max_timesteps``). Iterations before
+    ``start_time`` (scalar or per-image) are no-ops for that image. The
+    loop stops as soon as every image has finished; the iterations it
+    skips would change nothing.
 
-    With ``policy_graphs`` each policy step is :func:`static_policy_step`
-    on that cache's static tensors for this batch (``graph_key``: see
-    :meth:`PolicyGraphs.bind`), replayed from its CUDA graph on CUDA. It
-    then returns no buffers (None): the final ones are the static step's,
-    ``policy_graphs.steps[device].bufs``, until that device's next call.
+    Each policy step is :func:`static_policy_step` on the tensors of a
+    :class:`StaticPolicyStep`. Without ``policy_graphs`` they are this
+    call's copies of ``bufs`` and the first outputs, and the step runs
+    uncaptured: the tree search hands the loop buffer snapshots that
+    sibling nodes share. With ``policy_graphs`` they are that cache's for
+    this batch (``graph_key``: see :meth:`PolicyGraphs.bind`), replayed
+    from its CUDA graph on CUDA; the final buffers returned are then the
+    cache's own tensors, until that device's next call.
+
+    The encoder cache is on where ``bufs`` carry it and ``encode`` is
+    given; the loop drops it otherwise, so that the slot write, the
+    forward and the graph key all read it from the buffers.
     """
-    policy_step = make_policy_step(dt_apply, cfg, dt_embed_apply)
-    cached = bufs.state_embs is not None and encode is not None
-    static = None
+    if encode is None:
+        bufs = bufs.replace(state_embs=None)
+    step = functools.partial(
+        static_policy_step,
+        policy_step=make_policy_step(dt_apply, cfg, dt_embed_apply),
+        encode=encode, max_timesteps=max_timesteps)
     if policy_graphs is None:
-        bufs = bufs.replace(
-            states=bufs.states.clone(), rtg=bufs.rtg.clone(),
-            state_embs=None if bufs.state_embs is None
-            else bufs.state_embs.clone())
+        static = StaticPolicyStep.copy_of(bufs, action_dict, pred_rtg, step)
+        run = static.run
     else:
-        static = policy_graphs.bind(graph_key, policy_step, encode,
-                                    max_timesteps, bufs, action_dict,
+        static = policy_graphs.bind(graph_key, step, bufs, action_dict,
                                     pred_rtg)
-        bufs, action_dict = static.bufs, static.action_dict
+        run = functools.partial(policy_graphs.run, static)
     b, dev = env_state.batch, env_state.x.device
     start_time = torch.as_tensor(start_time, dtype=torch.long,
                                  device=dev).reshape(-1).expand(b)
@@ -442,7 +451,7 @@ def greedy_rollout(dt_apply: Callable, denoise: Callable, cfg: ModelConfig,
             if not _host_bool(started.any()):
                 continue  # every update below is masked by `started`
             with annotate(ENV_ADMM):
-                stepped = admm_step(denoise, env_state, action_dict)
+                stepped = admm_step(denoise, env_state, static.action_dict)
                 env_state = CSMRIState(**{
                     f.name: _where_rows(started, getattr(stepped, f.name),
                                         getattr(env_state, f.name))
@@ -460,31 +469,9 @@ def greedy_rollout(dt_apply: Callable, denoise: Callable, cfg: ModelConfig,
                 continue
 
             with annotate(POLICY_STEP):
-                if static is not None:
-                    policy_graphs.run(static, get_policy_ob(env_state), live,
-                                      t)
-                    continue
-                tw = min(t, max_timesteps - 1)
-                ob = get_policy_ob(env_state)
-                bufs.states[:, tw] = _where_rows(live, ob,
-                                                 bufs.states[:, tw])
-                bufs.rtg[:, tw] = _where_rows(live, pred_rtg[:, None],
-                                              bufs.rtg[:, tw])
-                if cached:
-                    bufs.state_embs[:, tw] = _where_rows(
-                        live, encode(ob), bufs.state_embs[:, tw])
+                run(get_policy_ob(env_state), live, t)
 
-                old_actions = bufs.actions
-                _, new_dict, new_rtg, bufs = policy_step(bufs, t)
-                bufs = bufs.replace(actions=_where_rows(live, bufs.actions,
-                                                        old_actions))
-                action_dict = {k: torch.where(live, new_dict[k],
-                                              action_dict[k])
-                               for k in action_dict}
-                pred_rtg = torch.where(live, new_rtg, pred_rtg)
-
-    return (env_state, compute_reward(env_state), ep_len,
-            None if static is not None else bufs)
+    return env_state, compute_reward(env_state), ep_len, static.bufs
 
 
 def policy_forward(dt: DecisionTransformer, cfg: ModelConfig) -> Callable:

@@ -52,8 +52,9 @@ ENV_ADMM = "dt4ir.env.admm"
 UNET = "dt4ir.unet"
 DRUNET = "dt4ir.drunet"
 POLICY_STEP = "dt4ir.policy.step"
-# Inside a policy step of the evaluator: the replay of its CUDA graph (or,
-# without CUDA, the same static step run uncaptured).
+# Inside a policy step run through a graph cache (the evaluator's on
+# CUDA): the replay of its CUDA graph (or, without CUDA, the same static
+# step run uncaptured).
 POLICY_GRAPH = "dt4ir.policy.graph"
 # The service's worker: the wait for a first request, the fill window after
 # it, the wait for an in-flight permit, the launch of a batch; its resolver:

@@ -1253,9 +1253,10 @@ def _graph_models(dev, dtype="float32"):
         unet.eval().requires_grad_(False).to(dev)
 
 
-def _eager_eval(dt, unet, cfg, records, dev, max_timesteps=30):
+def _rollout_without_a_cache(dt, unet, cfg, records, dev, max_timesteps=30):
     """``Evaluator.evaluate_records``' rollout through ``greedy_rollout``
-    without graphs: (final state, reward (B,), episode lengths (B,))."""
+    without a graph cache, its policy step uncaptured: (final state,
+    reward (B,), episode lengths (B,))."""
     from dt4image_restoration_tpu_torch.env import reset_from_mat
     from dt4image_restoration_tpu_torch.inference import (
         greedy_rollout, initial_policy_setup, policy_forward)
@@ -1283,18 +1284,19 @@ def _eager_eval(dt, unet, cfg, records, dev, max_timesteps=30):
 
 @pytest.mark.parametrize("dtype,batch", [("float32", 1), ("float32", 63),
                                          ("bfloat16", 63)])
-def test_evaluator_policy_graph_matches_eager_rollout_on_card(dev, dtype,
-                                                              batch):
+def test_evaluator_policy_graph_matches_a_rollout_without_a_cache_on_card(
+        dev, dtype, batch):
     """The evaluator, whose policy steps replay a CUDA graph, against
-    ``greedy_rollout``'s eager loop on the same models and slices: equal
-    episode lengths, and images bit-equal (a float32 gap, if any, under
-    1e-6, and reported)."""
+    ``greedy_rollout`` without a graph cache on the same models and
+    slices: equal episode lengths, and images bit-equal (a float32 gap,
+    if any, under 1e-6, and reported)."""
     cfg, dt, unet = _graph_models(dev, dtype)
     records = _graph_records(batch)
     ev = Evaluator(dt=dt, denoise=unet, cfg=cfg, max_timesteps=30,
                    device=dev)
     got = ev.evaluate_records(records)
-    final, reward, ep_len = _eager_eval(dt, unet, cfg, records, dev)
+    final, reward, ep_len = _rollout_without_a_cache(dt, unet, cfg, records,
+                                                     dev)
     assert ev.policy_graph_stats() == {"captures": 1, "replays": 29,
                                        "eager_policy_steps": 0}
     np.testing.assert_array_equal(got["episode_len"], ep_len)
@@ -1334,7 +1336,7 @@ def test_evaluator_policy_graph_is_captured_once_per_batch_and_weights(
     moved = ev.evaluate_records(two)
     assert ev.policy_graph_stats() == {"captures": 3, "replays": 116,
                                        "eager_policy_steps": 0}
-    final, _, ep_len = _eager_eval(dt, unet, cfg, two, dev)
+    final, _, ep_len = _rollout_without_a_cache(dt, unet, cfg, two, dev)
     np.testing.assert_array_equal(moved["episode_len"], ep_len)
     assert float((moved["final_state"].x - final.x).abs().max()) <= 1e-6
     assert not torch.equal(moved["final_state"].x, first["final_state"].x)

@@ -289,16 +289,53 @@ def test_greedy_rollout_mixed_stops_matches_jax(eval_dirs, denoisers):
                                    rtol=1e-3, atol=1e-4)
 
 
-# --- the evaluator's static policy step (a CUDA graph on the card) ---------
+def test_policy_step_gathers_the_rtg_and_state_windows_once():
+    """Both forwards of a policy step read one RTG window and one state
+    window, the same tensors; only the action window is gathered again.
+    The step's outputs stay the JAX package's, with one window sliding."""
+    import jax.numpy as jnp
+    rng = np.random.default_rng(3)
+    arrays = {"states": rng.uniform(0, 1, (2, 10, SIZE * SIZE)),
+              "actions": rng.uniform(0, 1, (2, 10, 3)),
+              "rtg": rng.uniform(0, 5, (2, 10, 1))}
+    arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
+    task, t = np.array([1, 4]), np.array([3, 8])   # context length 6
+    stub_j = _stub_policy(jnp, jdt)
+    theirs = jev.make_policy_step(
+        lambda params, *a: stub_j(*a), JModelConfig(**CFG_KW))(
+        None, jev.EvalBuffers(**{k: jnp.asarray(v)
+                                 for k, v in arrays.items()},
+                              task=jnp.asarray(task)), jnp.asarray(t))
+    stub_t, calls = _stub_policy(torch, tdt), []
+
+    def spy(*args):
+        calls.append(args)
+        return stub_t(*args)
+    ours = tev.make_policy_step(spy, ModelConfig(**CFG_KW))(
+        tev.EvalBuffers(**{k: torch.from_numpy(v) for k, v in arrays.items()},
+                        task=torch.from_numpy(task)), torch.from_numpy(t))
+    assert len(calls) == 2
+    assert calls[0][0] is calls[1][0] and calls[0][1] is calls[1][1]
+    assert calls[0][4] is not calls[1][4]
+    for a, b in ((ours[0], theirs[0]), (ours[2], theirs[2]),
+                 (ours[3].actions, theirs[3].actions)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-6)
+    for k, v in theirs[1].items():
+        np.testing.assert_allclose(ours[1][k].numpy(), np.asarray(v),
+                                   rtol=1e-5, atol=1e-6)
+
+
+# --- the policy step through a graph cache (a CUDA graph on the card) ------
 
 STATIC_MAXT = 14   # past both context lengths, so that the windows slide
 
 
 def _static_case(denoisers, eval_dirs, block_size, batch, cached, t_bias,
                  policy_graphs=None):
-    """One rollout of ``batch`` slices through ``greedy_rollout``, eager or
-    through ``policy_graphs``; the policy's stop output biased by
-    ``t_bias``."""
+    """One rollout of ``batch`` slices through ``greedy_rollout``, with or
+    without the graph cache ``policy_graphs``; the policy's stop output
+    biased by ``t_bias``."""
     model_den, _ = denoisers
     cfg = ModelConfig(**dict(CFG_KW, block_size=block_size))
     torch.manual_seed(0)
@@ -329,37 +366,41 @@ def _static_case(denoisers, eval_dirs, block_size, batch, cached, t_bias,
 @pytest.mark.parametrize("cached", [True, False], ids=["cached", "uncached"])
 @pytest.mark.parametrize("block_size", [18, 36])
 @pytest.mark.parametrize("batch", [1, 3])
-def test_static_policy_step_is_bit_equal_to_the_eager_loop(
+def test_rollout_through_a_policy_graph_cache_is_bit_equal_to_one_without(
         eval_dirs, denoisers, batch, block_size, cached, t_bias):
-    """The graph-ready policy step (static tensors, the step index on the
-    device, one-slot writes), run uncaptured on the CPU, gives the eager
-    loop's final states, rewards, episode lengths and buffers bit for bit,
-    with sliding windows and with images stopping at different steps."""
-    eager = _static_case(denoisers, eval_dirs, block_size, batch, cached,
+    """Two calls through one graph cache (uncaptured on the CPU: bound,
+    then its static tensors reused and loaded again) give the final
+    states, rewards, episode lengths and buffers of a rollout without a
+    cache bit for bit, with sliding windows and with images stopping at
+    different steps."""
+    alone = _static_case(denoisers, eval_dirs, block_size, batch, cached,
                          t_bias)
-    graphs = tev.PolicyGraphs()
-    static = _static_case(denoisers, eval_dirs, block_size, batch, cached,
-                          t_bias, graphs)
-    ep_len = eager[2].tolist()
+    ep_len = alone[2].tolist()
     if t_bias < -2:
         assert ep_len == [STATIC_MAXT] * batch
     else:
         assert min(ep_len) < STATIC_MAXT
         assert batch == 1 or len(set(ep_len)) > 1
-    assert torch.equal(static[2], eager[2])
-    assert torch.equal(static[1], eager[1])
-    for f in dataclasses.fields(pnp.CSMRIState):
-        assert torch.equal(getattr(static[0], f.name),
-                           getattr(eager[0], f.name)), f.name
-    assert static[3] is None   # the graph path returns no buffers
-    final_bufs = graphs.steps[torch.device("cpu")].bufs
-    for f in dataclasses.fields(tev.EvalBuffers):
-        got, want = getattr(final_bufs, f.name), getattr(eager[3], f.name)
-        assert (got is None) == (want is None), f.name
-        assert got is None or torch.equal(got, want), f.name
-    # One policy step at t = 1 .. the last live one, none captured.
-    assert graphs.stats() == {"captures": 0, "replays": 0,
-                              "eager_policy_steps": max(ep_len) - 1}
+    graphs = tev.PolicyGraphs()
+    for call in (1, 2):
+        through = _static_case(denoisers, eval_dirs, block_size, batch,
+                               cached, t_bias, graphs)
+        assert torch.equal(through[2], alone[2])
+        assert torch.equal(through[1], alone[1])
+        for f in dataclasses.fields(pnp.CSMRIState):
+            assert torch.equal(getattr(through[0], f.name),
+                               getattr(alone[0], f.name)), f.name
+        # The cache's own buffers, until the device's next call.
+        assert through[3] is graphs.steps[torch.device("cpu")].bufs
+        for f in dataclasses.fields(tev.EvalBuffers):
+            got, want = getattr(through[3], f.name), getattr(alone[3],
+                                                             f.name)
+            assert (got is None) == (want is None), f.name
+            assert got is None or torch.equal(got, want), f.name
+        # One policy step at t = 1 .. the last live one, none captured.
+        assert graphs.stats() == {"captures": 0, "replays": 0,
+                                  "eager_policy_steps":
+                                  call * (max(ep_len) - 1)}
 
 
 def _seeded(b, dev="cpu", maxt=8, s=16, cached=True):
@@ -378,8 +419,7 @@ def test_policy_graphs_keep_one_static_step_per_batch_and_weights():
 
     def bind(b, key="w0", cached=True):
         bufs, adict, prtg = _seeded(b, cached=cached)
-        s = graphs.bind(key, None, (lambda ob: ob) if cached else None, 8,
-                        bufs, adict, prtg)
+        s = graphs.bind(key, None, bufs, adict, prtg)
         assert torch.equal(s.bufs.states, bufs.states)
         assert s.bufs.states.data_ptr() != bufs.states.data_ptr()
         assert torch.equal(s.action_dict["mu"], adict["mu"])
@@ -400,8 +440,8 @@ def test_policy_graphs_keep_one_static_step_per_batch_and_weights():
                               "eager_policy_steps": 0}
 
 
-def test_cpu_evaluator_runs_the_eager_loop(eval_dirs, denoisers,
-                                           monkeypatch):
+def test_cpu_evaluator_runs_the_policy_step_without_a_graph_cache(
+        eval_dirs, denoisers, monkeypatch):
     """Without CUDA the evaluator hands ``greedy_rollout`` no graphs."""
     model_den, _ = denoisers
     handed = []

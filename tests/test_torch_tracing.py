@@ -141,13 +141,13 @@ def _policy_spans_nested(events):
 
 def test_a_rollout_through_policy_graphs_nests_each_replay_in_its_step(
         models, tmp_path):
-    """Through the evaluator's static step (uncaptured on the CPU) the
+    """Through the evaluator's graph cache (uncaptured on the CPU) the
     policy step is still one span per step, nested as before, with the
-    step's replay inside it; the outputs are the eager loop's."""
-    eager = _rollout(models)
+    step's replay inside it; the outputs are those without a cache."""
+    alone = _rollout(models)
     graphs = PolicyGraphs()
     out, events = _profiled(lambda: _rollout(models, graphs), tmp_path)
-    for a, b in zip(eager, out):
+    for a, b in zip(alone, out):
         assert torch.equal(a, b)
     policy, graph = _policy_spans_nested(events)
     assert len(policy) == len(graph) == MAXT - 1
