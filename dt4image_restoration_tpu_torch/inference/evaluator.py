@@ -19,7 +19,9 @@ writes static tensors in place, with the step index on the device. On CUDA
 the :class:`Evaluator` replays it from a CUDA graph (:class:`PolicyGraphs`),
 so the host launches a few copies and a replay in place of about a hundred
 small launches; the service and the tree searches run it uncaptured, on
-copies of their buffers.
+copies of their buffers. The :class:`Evaluator`'s rollouts run the prior's
+forward through a graph cache of their own too
+(:class:`..models.prior_graphs.PriorGraphs`).
 """
 from __future__ import annotations
 
@@ -43,21 +45,17 @@ from ..models.decision_transformer import (DecisionTransformer,
                                            make_dt_embed_apply,
                                            make_fused_dt_apply,
                                            make_state_encode)
-from ..ops.kernels import add_launches, tally_launches
+from ..models.prior_graphs import PriorGraphs
+from ..ops.kernels import add_launches
 from ..training.sharding import (Mesh, gather_eval_outputs,
                                  local_output_offset, padded_per_process,
                                  replicate, run_sharded, shard_eval_inputs,
                                  synchronize)
 from ..utils.device import resolve_device
+from ..utils.graphs import capture_graph, weights_key
 from ..utils.profiling import (ENV_ADMM, EVAL_PREPARE, EVAL_ROLLOUT,
                                EVAL_STEP, EVAL_SYNC, POLICY_GRAPH,
                                POLICY_STEP, annotate)
-
-# One capture at a time in the process: a capture's set-up synchronises the
-# device and empties the allocator's cache, which must not fall inside
-# another thread's capture on another device.
-_CAPTURE_LOCK = threading.Lock()
-
 
 @dataclasses.dataclass
 class EvalBuffers:
@@ -304,26 +302,6 @@ def static_policy_step(s: StaticPolicyStep, policy_step: Callable,
     s.pred_rtg.copy_(torch.where(live, new_rtg, s.pred_rtg))
 
 
-def _capture(s: StaticPolicyStep) -> None:
-    """Capture ``s.step`` as a CUDA graph, after one warm-up run on the same
-    side stream (K3's packed weights, the bfloat16 weight copies, the
-    cuBLAS and cuDNN handles and workspaces of that stream). The kernel
-    wrappers' calls during the capture launch nothing: they are tallied
-    in ``s.launches`` and counted at each replay."""
-    dev = s.t.device
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
-        s.step(s)
-    graph = torch.cuda.CUDAGraph()
-    # Thread-local: the shards of a mesh drive their devices from threads.
-    with _CAPTURE_LOCK, tally_launches() as launches, torch.cuda.graph(
-            graph, stream=side, capture_error_mode="thread_local"):
-        s.step(s)
-    torch.cuda.current_stream(dev).wait_stream(side)
-    s.graph, s.launches = graph, launches
-
-
 class PolicyGraphs:
     """The policy step of :func:`greedy_rollout` as a CUDA graph, one per
     device in ``steps``, captured on the first call of a batch shape and
@@ -369,7 +347,10 @@ class PolicyGraphs:
             s = StaticPolicyStep.copy_of(bufs, action_dict, pred_rtg, step)
             s.key = key
             if dev.type == "cuda":
-                _capture(s)
+                # After one warm-up run; the launches are counted at each
+                # replay.
+                s.graph, s.launches, _, _ = capture_graph(
+                    lambda: s.step(s), dev)
                 with self._lock:
                     self.captures += 1
         elif s.graph is None:   # uncaptured, it runs this call's functions
@@ -496,13 +477,6 @@ def check_policy_forward(dt: DecisionTransformer, cfg: ModelConfig,
             "DecisionTransformer with it")
 
 
-def _weights_key(dt: DecisionTransformer) -> Hashable:
-    """Every parameter's address and version. A captured policy step reads
-    the weights, K3's packed copy (whose key is a subset of this) and the
-    bfloat16 copies by address, so any change must capture anew."""
-    return tuple((p.data_ptr(), p._version) for p in dt.parameters())
-
-
 @dataclasses.dataclass
 class Evaluator:
     """Evaluation driver with the reference CLI's surface: a loop over
@@ -528,7 +502,11 @@ class Evaluator:
     captured on the first call of each batch size and again after the DT's
     weights change; :meth:`policy_graph_stats` counts captures and
     replays. A given ``dt_apply`` is captured as it is: weights it reads
-    other than ``dt``'s must keep their storage."""
+    other than ``dt``'s must keep their storage. Each shard's rollout runs
+    inside the scope of a :class:`..models.prior_graphs.PriorGraphs`, so
+    that on CUDA the prior's forward replays a CUDA graph too, captured on
+    the first call of each batch size and again after the prior's weights
+    change; :meth:`prior_graph_stats` counts them."""
     dt: DecisionTransformer
     denoise: Callable
     cfg: ModelConfig
@@ -557,11 +535,18 @@ class Evaluator:
             for dev in dict.fromkeys(d for d, _, _ in self._shards):
                 check_policy_forward(self.dt, self.cfg, dev)
         self._policy_graphs = PolicyGraphs()
+        self._prior_graphs = PriorGraphs()
 
     def policy_graph_stats(self) -> Dict[str, int]:
         """Over this evaluator's calls: the policy-step graphs captured,
         their replays, and the policy steps run without a graph."""
         return self._policy_graphs.stats()
+
+    def prior_graph_stats(self) -> Dict[str, int]:
+        """Over this evaluator's calls: the prior's graphs captured, their
+        replays, and the prior's calls run eagerly (without CUDA, or with
+        grad on)."""
+        return self._prior_graphs.stats()
 
     def _rollout(self, dt, denoise, policy_x0, rtg0, task, env_state):
         """One shard's rollout: (final state, reward (B,),
@@ -573,17 +558,18 @@ class Evaluator:
             dt_embed_apply = make_dt_embed_apply(dt_apply)
         graphs = graph_key = None
         if env_state.x.device.type == "cuda":
-            graphs, graph_key = self._policy_graphs, _weights_key(dt)
+            graphs, graph_key = self._policy_graphs, weights_key(dt)
         with annotate(EVAL_ROLLOUT):
             old_reward = compute_reward(env_state)
             bufs, _, action_dict, pred_rtg = initial_policy_setup(
                 dt_apply, self.cfg, policy_x0, rtg0, task,
                 self.max_timesteps, encode=encode)
-            final, reward, ep_len, _ = greedy_rollout(
-                dt_apply, denoise, self.cfg, env_state, bufs, action_dict,
-                pred_rtg, self.max_timesteps, encode=encode,
-                dt_embed_apply=dt_embed_apply, policy_graphs=graphs,
-                graph_key=graph_key)
+            with self._prior_graphs.scope():
+                final, reward, ep_len, _ = greedy_rollout(
+                    dt_apply, denoise, self.cfg, env_state, bufs,
+                    action_dict, pred_rtg, self.max_timesteps, encode=encode,
+                    dt_embed_apply=dt_embed_apply, policy_graphs=graphs,
+                    graph_key=graph_key)
         return final, reward[:, 0], old_reward[:, 0], ep_len
 
     @torch.no_grad()

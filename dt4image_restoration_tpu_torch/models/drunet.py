@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from ..utils.profiling import DRUNET, annotate
 from .precision import compute_dtype, conv2d, conv_transpose2d
+from .prior_graphs import run_prior
 
 NC = (64, 128, 256, 512)   # channels per scale (drunet_gray)
 NB = 4                     # ResBlocks per scale
@@ -138,7 +139,8 @@ class DRUNetDenoiser(nn.Module):
     """Frozen plug-in prior with ``UNetDenoiser``'s contract: ``(x (B, 1, H,
     W), sigma scalar or (B,))`` -> clamped (B, 1, H, W), in the dtype of
     ``x`` whatever the compute ``dtype``. The sigma map is the second input
-    channel, as in DPIR."""
+    channel, as in DPIR. Inside an evaluator's rollout on CUDA the forward
+    replays a CUDA graph (:mod:`.prior_graphs`)."""
 
     def __init__(self, nc: Sequence[int] = NC, nb: int = NB,
                  dtype: Union[str, torch.dtype] = torch.float32):
@@ -148,11 +150,14 @@ class DRUNetDenoiser(nn.Module):
 
     def forward(self, x: torch.Tensor, sigma) -> torch.Tensor:
         with annotate(DRUNET):
-            b, _, h, w = x.shape
-            sigma = torch.as_tensor(sigma, dtype=x.dtype, device=x.device)
-            sigma_map = sigma.reshape(-1, 1, 1, 1).expand(b, 1, h, w)
-            out = self.net(torch.cat([x, sigma_map], dim=1))
-            return torch.clamp(out.to(x.dtype), 0.0, 1.0)
+            return run_prior(self, self._denoise, x, sigma)
+
+    def _denoise(self, x: torch.Tensor, sigma) -> torch.Tensor:
+        b, _, h, w = x.shape
+        sigma = torch.as_tensor(sigma, dtype=x.dtype, device=x.device)
+        sigma_map = sigma.reshape(-1, 1, 1, 1).expand(b, 1, h, w)
+        out = self.net(torch.cat([x, sigma_map], dim=1))
+        return torch.clamp(out.to(x.dtype), 0.0, 1.0)
 
 
 def _init_std(name: str, shape: torch.Size) -> float:

@@ -45,6 +45,7 @@ from ..ops.kernels.upsample_concat import upsample_concat
 from ..ops.winograd import winograd_apply, winograd_weights
 from ..utils.profiling import UNET, annotate
 from .precision import compute_dtype, conv2d
+from .prior_graphs import run_prior
 
 NEGATIVE_SLOPE = 0.2
 # The U-Net's execution modes (--unet_packed) and a block's.
@@ -207,7 +208,9 @@ class UNet(nn.Module):
 class UNetDenoiser(nn.Module):
     """Frozen plug-in prior: ``(x (B, 1, H, W), sigma scalar or (B,))`` ->
     clamped (B, 1, H, W), in the dtype of ``x`` whatever the compute
-    ``dtype``; ``packed`` is the U-Net's execution mode."""
+    ``dtype``; ``packed`` is the U-Net's execution mode. Inside an
+    evaluator's rollout on CUDA the forward replays a CUDA graph
+    (:mod:`.prior_graphs`)."""
 
     def __init__(self, base_channels: int = 32,
                  dtype: Union[str, torch.dtype] = torch.float32,
@@ -218,11 +221,14 @@ class UNetDenoiser(nn.Module):
 
     def forward(self, x: torch.Tensor, sigma) -> torch.Tensor:
         with annotate(UNET):
-            b, _, h, w = x.shape
-            sigma = torch.as_tensor(sigma, dtype=x.dtype, device=x.device)
-            sigma_map = sigma.reshape(-1, 1, 1, 1).expand(b, 1, h, w)
-            return torch.clamp(self.net(torch.cat([x, sigma_map], dim=1)),
-                               0.0, 1.0)
+            return run_prior(self, self._denoise, x, sigma)
+
+    def _denoise(self, x: torch.Tensor, sigma) -> torch.Tensor:
+        b, _, h, w = x.shape
+        sigma = torch.as_tensor(sigma, dtype=x.dtype, device=x.device)
+        sigma_map = sigma.reshape(-1, 1, 1, 1).expand(b, 1, h, w)
+        return torch.clamp(self.net(torch.cat([x, sigma_map], dim=1)),
+                           0.0, 1.0)
 
 
 def random_unet_state_dict(seed: int = 0, base_channels: int = 32

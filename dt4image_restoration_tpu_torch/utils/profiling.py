@@ -56,6 +56,9 @@ POLICY_STEP = "dt4ir.policy.step"
 # CUDA): the replay of its CUDA graph (or, without CUDA, the same static
 # step run uncaptured).
 POLICY_GRAPH = "dt4ir.policy.graph"
+# Inside a prior's forward run through a graph cache (the evaluator's on
+# CUDA, ``models/prior_graphs.py``): the replay of its CUDA graph.
+PRIOR_GRAPH = "dt4ir.prior.graph"
 # The service's worker: the wait for a first request, the fill window after
 # it, the wait for an in-flight permit, the launch of a batch; its resolver:
 # the wait for a batch's copies and its results, and settling the futures.

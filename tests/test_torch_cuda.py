@@ -20,12 +20,14 @@ from dt4image_restoration_tpu_torch.data import (EvaluationDataset,
 from dt4image_restoration_tpu_torch.inference import (MCTS, DeviceMCTS,
                                                       Evaluator)
 from dt4image_restoration_tpu_torch.models import (DecisionTransformer,
-                                                   UNetDenoiser,
+                                                   DRUNetDenoiser,
+                                                   PriorGraphs, UNetDenoiser,
                                                    fused_forward_takes,
                                                    init_dt_params,
                                                    make_dt_apply,
                                                    proxy_value_fn,
                                                    proxy_value_fn_batched,
+                                                   random_drunet_state_dict,
                                                    random_unet_state_dict)
 from dt4image_restoration_tpu_torch.ops import kernels
 from dt4image_restoration_tpu_torch.ops.kernels import attention as k4
@@ -1299,6 +1301,8 @@ def test_evaluator_policy_graph_matches_a_rollout_without_a_cache_on_card(
                                                      dev)
     assert ev.policy_graph_stats() == {"captures": 1, "replays": 29,
                                        "eager_policy_steps": 0}
+    assert ev.prior_graph_stats() == {"captures": 1, "replays": 29,
+                                      "eager_prior_calls": 0}
     np.testing.assert_array_equal(got["episode_len"], ep_len)
     gap = float((got["final_state"].x - final.x).abs().max())
     print(f"policy graph, {dtype} B={batch}: largest pixel gap {gap:.3e}, "
@@ -1340,6 +1344,144 @@ def test_evaluator_policy_graph_is_captured_once_per_batch_and_weights(
     np.testing.assert_array_equal(moved["episode_len"], ep_len)
     assert float((moved["final_state"].x - final.x).abs().max()) <= 1e-6
     assert not torch.equal(moved["final_state"].x, first["final_state"].x)
+
+
+# --- the priors' forward as a CUDA graph ------------------------------------
+
+# The kernels of the priors' forward, by wrapper (DRUNet launches none).
+PRIOR_KERNELS = ("conv_block", "conv_block_bf16", "upsample_concat")
+
+
+def _prior_launches():
+    counts = kernels.launch_counts()
+    return {k: counts[k] for k in PRIOR_KERNELS}
+
+
+def _prior(dev, arch, dtype):
+    if arch == "unet":
+        den = UNetDenoiser(dtype=dtype)
+        den.load_state_dict(random_unet_state_dict(0))
+    else:
+        den = DRUNetDenoiser(dtype=dtype)
+        den.load_state_dict(random_drunet_state_dict(0))
+    return den.eval().requires_grad_(False).to(dev)
+
+
+@pytest.mark.parametrize("arch,dtype,batch", [
+    ("unet", "float32", 1), ("unet", "float32", 63),
+    ("unet", "bfloat16", 63), ("drunet", "bfloat16", 4)])
+def test_prior_graph_is_bit_equal_to_the_eager_forward_on_card(
+        dev, arch, dtype, batch):
+    """Four calls of one shape through a graph cache (the first captures
+    and answers from its warm-up, the others replay; the last with a float
+    sigma) give the eager forward's answers bit for bit, each in a tensor
+    of the caller's own that a later replay leaves alone; the K1, K1-bf16
+    and K6 counters advance as they do eagerly."""
+    den = _prior(dev, arch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(batch)
+    xs = [torch.rand((batch, 1, 128, 128), device=dev, generator=gen)
+          for _ in range(4)]
+    sigmas = [0.1 * torch.rand((batch,), device=dev, generator=gen)
+              for _ in range(3)] + [0.05]
+    graphs = PriorGraphs()
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        want = [den(x, s) for x, s in zip(xs, sigmas)]
+        torch.cuda.synchronize()
+        eager = _prior_launches()
+        kernels.reset_launch_counts()
+        with graphs.scope():
+            got = [den(x, s) for x, s in zip(xs, sigmas)]
+            torch.cuda.synchronize()
+            assert _prior_launches() == eager
+            kept = [g.clone() for g in got]
+            den(xs[0], 0.2)
+    gaps = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    print(f"prior graph, {arch} {dtype} B={batch}: pixel gaps {gaps}, "
+          f"launches {eager}")
+    assert gaps == [0.0] * 4
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert all(torch.equal(g, k) for g, k in zip(got, kept))
+    assert graphs.stats() == {"captures": 1, "replays": 4,
+                              "eager_prior_calls": 0}
+    static = graphs.graphs[xs[0].device].out
+    assert all(g.data_ptr() != static.data_ptr() for g in got)
+    if arch == "unet":
+        assert eager["upsample_concat"] == 4 * 4
+        assert eager["conv_block_bf16" if dtype == "bfloat16"
+                     else "conv_block"] == 2 * 4
+
+
+def test_prior_graph_captures_anew_for_a_new_batch_or_new_weights_on_card(
+        dev):
+    """A new batch size captures in place of the device's graph; so does a
+    change of the weights in place (K1's packed copy among them) before
+    the next scope, as between two rollouts, and the answers follow the
+    new weights."""
+    den = _prior(dev, "unet", "float32")
+    x2 = torch.rand((2, 1, 128, 128), device=dev)
+    x3 = torch.rand((3, 1, 128, 128), device=dev)
+    graphs = PriorGraphs()
+    with torch.no_grad():
+        with graphs.scope():
+            den(x2, 0.05)
+            den(x2, 0.05)
+            first = graphs.graphs[x2.device]
+            den(x3, 0.05)
+        assert graphs.stats() == {"captures": 2, "replays": 1,
+                                  "eager_prior_calls": 0}
+        assert list(graphs.graphs) == [x2.device]
+        assert graphs.graphs[x2.device] is not first
+        with graphs.scope():
+            den(x3, 0.05)
+        assert graphs.stats()["captures"] == 2
+        den.net.inc.conv0.weight.mul_(1.5)
+        den.net.up2.conv1.weight.mul_(1.5)
+        with graphs.scope():
+            moved = den(x3, 0.05)
+            again = den(x3, 0.05)
+        assert graphs.stats() == {"captures": 3, "replays": 3,
+                                  "eager_prior_calls": 0}
+        want = den(x3, 0.05)
+    assert torch.equal(moved, want) and torch.equal(again, want)
+
+
+@pytest.mark.parametrize("dtype,batch", [("float32", 1), ("float32", 63),
+                                         ("bfloat16", 63)])
+def test_evaluator_prior_graph_matches_the_eager_prior_on_card(
+        dev, dtype, batch):
+    """The evaluator with its prior replayed from a graph against the same
+    evaluator whose prior runs eagerly (called with grad on, which the
+    graph cache leaves eager): equal episode lengths, bit-equal images,
+    and the same K1, K1-bf16 and K6 launches."""
+    cfg, dt, unet = _graph_models(dev, dtype)
+    records = _graph_records(batch)
+
+    def eager(x, sigma):
+        with torch.enable_grad():
+            return unet(x, sigma)
+
+    runs = {}
+    for name, den in (("graph", unet), ("eager", eager)):
+        ev = Evaluator(dt=dt, denoise=den, cfg=cfg, max_timesteps=30,
+                       device=dev)
+        kernels.reset_launch_counts()
+        m = ev.evaluate_records(records)
+        torch.cuda.synchronize()
+        runs[name] = (m, _prior_launches(), ev.prior_graph_stats())
+    (got, got_launches, got_stats), (want, want_launches, want_stats) = \
+        runs["graph"], runs["eager"]
+    assert got_stats == {"captures": 1, "replays": 29,
+                         "eager_prior_calls": 0}
+    assert want_stats == {"captures": 0, "replays": 0,
+                          "eager_prior_calls": 30}
+    assert got_launches == want_launches
+    np.testing.assert_array_equal(got["episode_len"], want["episode_len"])
+    gap = float((got["final_state"].x - want["final_state"].x).abs().max())
+    print(f"prior graph in the evaluator, {dtype} B={batch}: largest pixel "
+          f"gap {gap:.3e}")
+    assert gap == 0.0
+    assert torch.equal(got["final_state"].x, want["final_state"].x)
 
 
 def test_validate_parity_selftest_on_card(dev, capsys):

@@ -1,5 +1,6 @@
 """The port's spans (utils/profiling.py): where the evaluation loop, the
-ADMM step, the U-Net, the policy step and the service record them, how they
+ADMM step, the U-Net (and its graph's replay), the policy step and the
+service record them, how they
 nest, that they cost nothing and record nothing while no profiler runs,
 that they change no result, and that the operator's exporter reaches the
 service's threads.
@@ -8,6 +9,7 @@ The policy's stop output T is biased to -3, so every episode runs to
 ``MAXT`` and the loop's iterations are known: t = 0 (before the start, one
 host read), t = 1 .. MAXT (an ADMM step and two host reads each, a policy
 step in all but the last), and the last's third read, which ends the loop."""
+import contextlib
 import json
 
 import numpy as np
@@ -22,7 +24,7 @@ from dt4image_restoration_tpu_torch.inference import (Evaluator,
                                                       greedy_rollout,
                                                       initial_policy_setup)
 from dt4image_restoration_tpu_torch.models import (DecisionTransformer,
-                                                   UNetDenoiser,
+                                                   PriorGraphs, UNetDenoiser,
                                                    make_dt_apply,
                                                    make_dt_embed_apply,
                                                    make_state_encode,
@@ -32,7 +34,8 @@ from dt4image_restoration_tpu_torch.serving import (RestorationRequest,
 from dt4image_restoration_tpu_torch.utils import profiling
 from dt4image_restoration_tpu_torch.utils.device import resolve_device
 from dt4image_restoration_tpu_torch.utils.profiling import (
-    ENV_ADMM, EVAL_STEP, EVAL_SYNC, POLICY_GRAPH, POLICY_STEP, SERVE_FILL,
+    ENV_ADMM, EVAL_STEP, EVAL_SYNC, POLICY_GRAPH, POLICY_STEP, PRIOR_GRAPH,
+    SERVE_FILL,
     SERVE_LAUNCH, SERVE_PERMIT, SERVE_RESOLVE, SERVE_SETTLE, SERVE_WAIT,
     TRACE_FILE, UNET, annotate, trace_if_enabled)
 from torch_port_common import one_torch_thread  # noqa: F401
@@ -187,6 +190,62 @@ def test_each_policy_step_on_the_card_replays_its_graph_once(tmp_path):
           and "dt_decode" in e.get("name", "")]
     # Two eager forwards of the setup, two replayed ones a policy step.
     assert len(k3) == 2 + 2 * (MAXT - 1)
+
+
+@pytest.mark.cuda
+def test_a_replayed_prior_keeps_its_kernels_under_the_benchmarks_span(
+        tmp_path):
+    """The benchmark reads the prior's device time from the kernels whose
+    launch lies in its ``portbench.unet`` span (``portbench/trace.py:
+    read_events``, by correlation id). A prior replayed from its graph
+    launches them by one ``cudaGraphLaunch`` inside that span: they are
+    attributed to it, with the eager calls' device time within 10 %, and
+    each replay's ``dt4ir.prior.graph`` span lies inside its ``dt4ir.unet``
+    span."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    from portbench.trace import WINDOW_SPAN, read_events, unet_span
+    dev = resolve_device("cuda")
+    den = UNetDenoiser()
+    den.load_state_dict(random_unet_state_dict(seed=3))
+    den = den.eval().requires_grad_(False).to(dev)
+    x = torch.rand((1, 1, 128, 128), device=dev)
+    sigma = torch.full((1,), 0.05, device=dev)
+    graphs, calls = PriorGraphs(), 4
+
+    def window(graphed):
+        with torch.no_grad(), contextlib.ExitStack() as stack:
+            if graphed:
+                stack.enter_context(graphs.scope())
+            with torch.profiler.record_function(WINDOW_SPAN):
+                for _ in range(calls):
+                    with unet_span():
+                        den(x, sigma)
+                torch.cuda.synchronize()
+
+    with torch.no_grad():
+        den(x, sigma)
+        with graphs.scope():
+            den(x, sigma)                      # captures the graph
+    torch.cuda.synchronize()
+    traced = {}
+    for graphed in (False, True):
+        _, events = _profiled(lambda: window(graphed), tmp_path, cuda=True)
+        traced[graphed] = (read_events(events), events)
+    eager, replayed = traced[False][0], traced[True][0]
+    assert len(eager.spans) == len(replayed.spans) == calls
+    assert eager.unet_device_s() > 0 and replayed.unet_device_s() > 0
+    ratio = replayed.unet_device_s() / eager.unet_device_s()
+    print(f"prior device s under the span: eager {eager.unet_device_s():.6f}"
+          f", replayed {replayed.unet_device_s():.6f} ({ratio:.3f}x)")
+    assert 0.9 <= ratio <= 1.1
+    assert graphs.stats() == {"captures": 1, "replays": calls,
+                              "eager_prior_calls": 0}
+    events = traced[True][1]
+    unet, graph = _spans(events, UNET), _spans(events, PRIOR_GRAPH)
+    assert len(unet) == len(graph) == calls
+    for g in graph:
+        assert len(_inside(g, unet)) == 1
 
 
 def test_outputs_are_bit_equal_with_the_profiler_on_and_off(models,
