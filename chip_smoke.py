@@ -201,10 +201,13 @@ REPLACES = {
     "layernorm": "dt4image_restoration_tpu/ops/pallas/layernorm.py:29",
     # No Pallas kernel: the JAX decoder's XLA interpolation matmuls.
     "upsample_concat": "none (dt4image_restoration_tpu/ops/image.py:56)",
+    # No Pallas kernel: the JAX package has no Restormer.
+    "mdta_gram": "none (Restormer's attention map; no JAX prior)",
 }
 # K6 repeats F.interpolate's arithmetic: bit for bit, no tolerance.
 TOLERANCE = {"conv_block": 1e-4, "kspace": 1e-6, "dt_decode": 1e-4,
-             "attention": 1e-5, "layernorm": 1e-5, "upsample_concat": 0.0}
+             "attention": 1e-5, "layernorm": 1e-5, "upsample_concat": 0.0,
+             "mdta_gram": 1e-5}
 # K1 in bfloat16 against its plain version: both sum in float32 in another
 # order and round each layer to bfloat16, so a value near a rounding
 # boundary can come out one bfloat16 step (2^-7 relative) apart, and such a
@@ -234,7 +237,16 @@ SUMMARY_SHAPES = {
     # The four decoder levels of one U-Net call.
     "upsample_concat": tuple(f"float32 {lv} B={EVAL_BATCH}"
                              for lv in ("up1", "up2", "up3", "up4")),
+    # Restormer's five kinds of level, in bfloat16.
+    "mdta_gram": tuple(f"{lv} B={EVAL_BATCH}" for lv in (
+        "level1", "level2", "level3", "latent", "decoder1")),
 }
+# K7's (side, channels, heads) at Restormer's levels on 128x128 slices
+# (decoder levels 3 and 2 have the shapes of encoder levels 3 and 2; the
+# refinement has decoder level 1's).
+RESTORMER_LEVELS = {"level1": (128, 48, 1), "level2": (64, 96, 2),
+                    "level3": (32, 192, 4), "latent": (16, 384, 8),
+                    "decoder1": (128, 96, 1)}
 # K6's (a, skip) planes at the U-Net decoder's levels on 128x128 slices.
 UPSAMPLE_LEVELS = {"up1": ((512, 8, 8), (256, 16, 16)),
                    "up2": ((256, 16, 16), (128, 32, 32)),
@@ -413,6 +425,7 @@ def phase_kernels(torch, dev):
     from dt4image_restoration_tpu_torch.ops.kernels import transformer as k3
     from dt4image_restoration_tpu_torch.ops.kernels import (
         upsample_concat as k6)
+    from dt4image_restoration_tpu_torch.ops.kernels import mdta_gram as k7
 
     gen = torch.Generator(device=dev).manual_seed(0)
     unet = UNetDenoiser().eval().requires_grad_(False)
@@ -539,6 +552,52 @@ def phase_kernels(torch, dev):
                        bit_equal_share=1.0 - int(
                            (got.view(bits) != ref.view(bits)).sum())
                        / got.numel())
+
+    # K7 at Restormer's levels, in bfloat16 (the configuration's dtype), at
+    # one slice, the search's batch and the evaluation batch, against its
+    # plain version (normalize, matmul, softmax in float32 on the same
+    # bfloat16 q and k). library_ms is the chain Restormer's code writes,
+    # run in bfloat16 on the strided views; kernel_ms, plain_ms and
+    # library_ms are device times from CUDA graphs, call_ms the eager
+    # wrapper. Two launches on one input agree bit for bit (no atomics).
+    # The bound: q and k read once and the float32 maps written once, or
+    # the Gram's products at the bfloat16 rate.
+    peak_k7 = bf16_peak(torch.cuda.get_device_name(0))
+    for lv, (side, ch, heads) in RESTORMER_LEVELS.items():
+        c = ch // heads
+        for b in (1, SEARCH_BATCH, EVAL_BATCH):
+            qkv = torch.randn((b, side, side, 3 * ch), generator=gen,
+                              device=dev).to(torch.bfloat16)
+            tau = 1.0 + 0.05 * torch.randn((heads,), generator=gen,
+                                           device=dev)
+            got = k7.mdta_gram(qkv, tau, heads)
+            require_equal("mdta_gram", f"{lv} B={b}", got,
+                          k7.mdta_gram(qkv, tau, heads))
+            ref = k7.mdta_gram_plain(qkv, tau, heads)
+
+            def library(qkv=qkv, tau=tau, heads=heads, c=c, b=b,
+                        side=side):
+                q, k, _ = qkv.reshape(b, side * side, 3, heads, c) \
+                    .unbind(2)
+                q = F.normalize(q.permute(0, 2, 3, 1), dim=-1)
+                k = F.normalize(k.permute(0, 2, 3, 1), dim=-1)
+                return ((q @ k.transpose(-2, -1))
+                        * tau.reshape(-1, 1, 1)).softmax(dim=-1)
+
+            launches = 50 if b == 1 else 10
+            record("mdta_gram", f"{lv} B={b}", got, ref,
+                   time_graph_ms(torch, lambda: k7.mdta_gram(
+                       qkv, tau, heads), launches=launches, replays=5),
+                   time_graph_ms(torch, lambda: k7.mdta_gram_plain(
+                       qkv, tau, heads), launches=launches, replays=5),
+                   time_graph_ms(torch, library, launches=launches,
+                                 replays=5),
+                   2.0 * b * side * side * ch * c,
+                   float(b * (side * side * 2 * ch * qkv.element_size()
+                              + heads * c * c * 4)),
+                   call_ms=time_ms(torch, lambda: k7.mdta_gram(
+                       qkv, tau, heads), 50),
+                   peak=peak_k7, peak_name="bf16")
 
     # K1 in bfloat16 at the same blocks, at the batches of the bfloat16
     # paths: one slice, the search's rollouts, the evaluation batch, the
@@ -1019,6 +1078,36 @@ def phase_eval_bf16(torch, dev, ckpt_dir, dirs, f32):
             or out["check_reward_diff_db"] > EVAL_BF16_DB:
         raise AssertionError("bfloat16 evaluation on the card disagrees "
                              "with the CPU")
+    return out
+
+
+def phase_eval_restormer(torch, dev, ckpt_dir, dirs):
+    """Restormer at its published widths (random weights, as the CLI draws
+    them without a file) as the prior of a bfloat16 evaluation of the
+    first directory's 7 slices x 30 steps: K7 in every block, K2, K3; the
+    prior's forward replayed from one graph."""
+    from dt4image_restoration_tpu_torch.config import ModelConfig
+    from dt4image_restoration_tpu_torch.inference import Evaluator
+    from dt4image_restoration_tpu_torch.utils.loaders import load_denoiser
+
+    cfg = ModelConfig(block_size=18, n_embeds=9, mode="norm",
+                      dtype="bfloat16")
+    ev = Evaluator(dt=_load_policy(cfg, ckpt_dir, dev),
+                   denoise=load_denoiser(os.path.join(ckpt_dir, "none.pth"),
+                                         device=dev, dtype="bfloat16",
+                                         arch="restormer"),
+                   cfg=cfg, max_timesteps=30, rtg_target=10.0, device=dev)
+    ev.run(dirs[:1])
+    m = ev.last_metrics
+    out = {"phase": "eval_restormer", "nvidia_smi": nvidia_smi(),
+           "images": len(m["reward"]),
+           "avg_reward_db": float(m["reward"].mean()),
+           "avg_episode_len": float(m["episode_len"].mean()),
+           "wall_s": m["wall_time_s"],
+           "prior_graph": ev.prior_graph_stats()}
+    emit(out)
+    if not all(map(math.isfinite, m["reward"])):
+        raise AssertionError(f"Restormer evaluation returned {m['reward']}")
     return out
 
 
@@ -2452,6 +2541,9 @@ def main() -> int:
         kernels.reset_launch_counts()
         phase_eval_bf16(torch, dev, ckpt_dir, dirs, f32_eval)
         paths["eval_bf16"] = kernels.launch_counts()
+        kernels.reset_launch_counts()
+        phase_eval_restormer(torch, dev, ckpt_dir, dirs)
+        paths["eval_restormer"] = kernels.launch_counts()
         paths["record"] = phase_record(torch, dev, ckpt_dir, kernels)
         paths.update(phase_mcts(torch, dev, ckpt_dir, dirs, kernels))
         paths.update(phase_mesh(torch, dev, ckpt_dir, dirs, tmp, kernels))
@@ -2481,6 +2573,8 @@ def main() -> int:
     for path, want in (("rollout", unet),
                        ("eval", unet + ("dt_decode",)),
                        ("eval_bf16", unet16 + ("dt_decode",)),
+                       ("eval_restormer", ("kspace", "dt_decode",
+                                           "mdta_gram")),
                        ("record", unet),
                        ("mcts", search), ("mcts_device", search),
                        ("mcts_expand", search),

@@ -60,9 +60,6 @@ from .config import DENOISER_ARCHS, EVAL_DIR_TOKENS
 from .models.unet import UNET_MODES
 from .utils.profiling import trace_if_enabled
 
-# Each prior's checkpoint where its project keeps it.
-DENOISER_CKPTS = {"unet_nm": "evaluation/pretrained/unet-nm.pt",
-                  "drunet": "model_zoo/drunet_gray.pth"}
 EVAL_DIRS_9 = [f"evaluation/image_dir/vanilla/{t}/" for t in EVAL_DIR_TOKENS]
 EVAL_DIRS_6 = EVAL_DIRS_9[:6]
 FLEX_RTGS = [1.5, 3, 3.5, 4, 4.5]
@@ -126,15 +123,21 @@ def build_parser() -> argparse.ArgumentParser:
         s.add_argument("--max_timesteps", type=int, default=30)
         s.add_argument("--checkpoint", default=ckpt)
         s.add_argument("--denoiser_ckpt", default=None,
-                       help="the prior's checkpoint (default: "
-                            "evaluation/pretrained/unet-nm.pt, or "
-                            "model_zoo/drunet_gray.pth for drunet)")
+                       help="the prior's checkpoint (default: where its "
+                            "project keeps it: "
+                            "evaluation/pretrained/unet-nm.pt, "
+                            "model_zoo/drunet_gray.pth for drunet, "
+                            "Denoising/pretrained_models/"
+                            "gaussian_gray_denoising_blind.pth for "
+                            "restormer)")
         s.add_argument("--denoiser_arch", default="unet_nm",
                        choices=list(DENOISER_ARCHS),
                        help="the plug-in prior: 'unet_nm' (default), the "
                             "DT4IR U-Net; 'drunet', DPIR's DRUNet "
-                            "(DPIR's UNetRes checkpoint layout; "
-                            "--unet_packed does not apply)")
+                            "(DPIR's UNetRes checkpoint layout); "
+                            "'restormer', Restormer (restormer_arch.py's "
+                            "layout); --unet_packed applies to the U-Net "
+                            "alone")
         s.add_argument("--data_dirs", nargs="*", default=None)
         s.add_argument("--data_root", default=None,
                        help="re-root the default eval dir list "
@@ -242,15 +245,16 @@ def _process_group(device):
 
 def _prior_note(args) -> str:
     """How the verb runs its prior, for its stderr line."""
-    if args.denoiser_arch == "unet_nm":
+    from .utils.loaders import PRIORS
+    if PRIORS[args.denoiser_arch].modes:
         return f"U-Net mode {args.unet_packed}"
     return f"prior {args.denoiser_arch}"
 
 
 def _load_prior(args, dev):
     """The verb's plug-in prior (``--denoiser_arch``) on ``dev``."""
-    from .utils.loaders import load_denoiser
-    path = args.denoiser_ckpt or DENOISER_CKPTS[args.denoiser_arch]
+    from .utils.loaders import PRIORS, load_denoiser
+    path = args.denoiser_ckpt or PRIORS[args.denoiser_arch].checkpoint
     return load_denoiser(path, device=dev, dtype=args.dtype,
                          packed=args.unet_packed, arch=args.denoiser_arch)
 

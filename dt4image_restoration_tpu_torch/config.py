@@ -57,8 +57,14 @@ class ModelConfig:
         return self.block_size // 3
 
 
-# The plug-in priors: the DT4IR U-Net (``unet-nm.pt``) and DPIR's DRUNet.
-DENOISER_ARCHS = ("unet_nm", "drunet")
+def __getattr__(name: str):
+    """``DENOISER_ARCHS``, the names of the plug-in priors, read from their
+    registry (``utils/loaders.py:PRIORS``) at first use: the registry
+    imports the models, which import this module."""
+    if name == "DENOISER_ARCHS":
+        from .utils.loaders import PRIORS
+        return tuple(PRIORS)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 @dataclasses.dataclass(frozen=True)

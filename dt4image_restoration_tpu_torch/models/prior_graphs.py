@@ -1,8 +1,9 @@
 """The plug-in prior's forward as a CUDA graph, in the evaluator's rollouts.
 
-Both priors (``unet.py:UNetDenoiser``, ``drunet.py:DRUNetDenoiser``) have
-one contract, ``(x (B, 1, H, W), sigma scalar or (B,))`` -> clamped (B, 1,
-H, W), and run their forward's body through :func:`run_prior`. Inside a
+The priors (``unet.py:UNetDenoiser``, ``drunet.py:DRUNetDenoiser``,
+``restormer.py:RestormerDenoiser``) have one contract, ``(x (B, 1, H, W),
+sigma scalar or (B,))`` -> clamped (B, 1, H, W), and run their forward's
+body through :func:`run_prior`. Inside a
 :meth:`PriorGraphs.scope` opened on the calling thread, with grad off and
 ``x`` on CUDA, the body is a CUDA graph, one per device, captured on the
 first call of a batch shape, dtype, prior and weights and replayed on every

@@ -10,19 +10,22 @@ compiled on its first CUDA call (see :mod:`._build`).
     K5 layernorm   <- ops/pallas/layernorm.py:layernorm_pallas
     K6 upsample_concat (no TPU kernel: the U-Net decoder's upsampling, pad
        and skip concat, which the JAX package leaves to XLA)
+    K7 mdta_gram (no TPU kernel: the JAX package has no Restormer; the
+       attention map of Restormer's transposed attention)
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from . import (attention, conv_block, conv_block_bf16, kspace, layernorm,
-               transformer, upsample_concat)
+               mdta_gram, transformer, upsample_concat)
 from ._build import add_launches, tally_launches  # noqa: F401 (graphs)
 
 KERNEL_MODULES = {"conv_block": conv_block,
                   "conv_block_bf16": conv_block_bf16, "kspace": kspace,
                   "dt_decode": transformer, "attention": attention,
-                  "layernorm": layernorm, "upsample_concat": upsample_concat}
+                  "layernorm": layernorm, "upsample_concat": upsample_concat,
+                  "mdta_gram": mdta_gram}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -52,8 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "learning)")
     p.add_argument("--denoiser_arch", default="unet_nm",
                    choices=list(DENOISER_ARCHS),
-                   help="the prior: the DT4IR U-Net (default) or DPIR's "
-                        "DRUNet")
+                   help="the prior: the DT4IR U-Net (default), DPIR's "
+                        "DRUNet or Restormer")
     p.add_argument("--eval", action="store_true",
                    help="also write the nine evaluation/image_dir/vanilla/"
                         "{A}_{S}/ eval dirs the verbs scan by default")

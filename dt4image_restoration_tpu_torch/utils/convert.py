@@ -8,10 +8,12 @@ Two sources, each turned into a port ``state_dict``:
     state encoder's dense kernel is permuted from the NHWC flatten of the
     JAX model to the NCHW flatten of the port.
   * the reference's published PyTorch checkpoints (``unet-nm.pt``,
-    ``model_experiment_{1,2}.pt``), DPIR's DRUNet (``drunet_gray.pth``)
-    and the ARNIQA hub checkpoint: :func:`unet_from_reference`,
-    :func:`dt_from_reference`, :func:`drunet_from_reference`,
-    :func:`arniqa_from_hub`. Only key names change. :func:`unet_to_reference`
+    ``model_experiment_{1,2}.pt``), DPIR's DRUNet (``drunet_gray.pth``),
+    Restormer's (``restormer_arch.py``'s layout) and the ARNIQA hub
+    checkpoint: :func:`unet_from_reference`, :func:`dt_from_reference`,
+    :func:`drunet_from_reference`, :func:`restormer_from_reference`,
+    :func:`arniqa_from_hub`. Only key names change (and a one-channel
+    Restormer input gains a zero sigma column). :func:`unet_to_reference`
     and :func:`dt_to_reference` write a port model back in the reference's
     layout.
 
@@ -146,6 +148,42 @@ def drunet_from_reference(state_dict: Mapping[str, Any]
         if _DRUNET_REF.fullmatch(key) is None:
             raise ValueError(f"unrecognized DRUNet checkpoint key: {key}")
         sd["net." + key] = _t(v)
+    return sd
+
+
+_RESTORMER_BLOCK = (r"(?:norm[12]\.body\.weight"
+                    r"|attn\.(?:temperature|qkv\.weight|qkv_dwconv\.weight"
+                    r"|project_out\.weight)"
+                    r"|ffn\.(?:project_in|dwconv|project_out)\.weight)")
+_RESTORMER_REF = re.compile(
+    r"(?:(?:encoder_level[123]|latent|decoder_level[123]|refinement)\.\d+\."
+    + _RESTORMER_BLOCK
+    + r"|(?:down1_2|down2_3|down3_4|up4_3|up3_2|up2_1)\.body\.0\.weight"
+    r"|reduce_chan_level[23]\.weight|patch_embed\.proj\.weight"
+    r"|output\.weight)")
+
+
+def restormer_from_reference(state_dict: Mapping[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """Restormer ``state_dict`` in ``restormer_arch.py``'s layout (BiasFree,
+    bias-free; a BasicSR ``{"params": ...}`` file, and an optional ``net.``
+    prefix, are taken too) -> port ``RestormerDenoiser`` state dict. The
+    port's network reads the image and its sigma map: a published
+    one-channel ``patch_embed.proj.weight`` (dim, 1, 3, 3) gains a zero
+    sigma column. A key outside that layout raises here; a missing one in
+    :func:`load_strict`."""
+    if "params" in state_dict and not torch.is_tensor(state_dict["params"]):
+        state_dict = state_dict["params"]
+    sd = {}
+    for key, v in _strip(state_dict).items():
+        key = key.removeprefix("net.")
+        if _RESTORMER_REF.fullmatch(key) is None:
+            raise ValueError(f"unrecognized Restormer checkpoint key: {key} "
+                             "(a checkpoint of another --denoiser_arch?)")
+        t = _t(v)
+        if key == "patch_embed.proj.weight" and t.shape[1] == 1:
+            t = torch.cat([t, torch.zeros_like(t)], dim=1)
+        sd["net." + key] = t
     return sd
 
 

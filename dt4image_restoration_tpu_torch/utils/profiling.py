@@ -11,8 +11,8 @@ spans stay in the hot loops. Both tree searches (``inference/mcts.py``,
 ``inference/mcts_device.py``) annotate each round as
 ``SEARCH_ROUND.format(i)``, so that one round of either backend can be read
 from a trace with :func:`region_breakdown`. The evaluation loop, the ADMM
-step, the priors (U-Net, DRUNet) and the service annotate their work under
-the ``dt4ir.`` names below; the evaluator's spans nest under
+step, the priors (U-Net, DRUNet, Restormer) and the service annotate their
+work under the ``dt4ir.`` names below; the evaluator's spans nest under
 ``SERVE_LAUNCH`` when the service runs them.
 
     timer = StepTimer(device)
@@ -46,11 +46,12 @@ EVAL_ROLLOUT = "dt4ir.eval.rollout"
 EVAL_STEP = "dt4ir.eval.step"
 EVAL_SYNC = "dt4ir.eval.sync"
 # One ADMM iteration and its masked merge; one U-Net forward; one DRUNet
-# forward; one policy step (buffer writes, state encoder, the two DT
-# forwards, masked merges).
+# forward; one Restormer forward; one policy step (buffer writes, state
+# encoder, the two DT forwards, masked merges).
 ENV_ADMM = "dt4ir.env.admm"
 UNET = "dt4ir.unet"
 DRUNET = "dt4ir.drunet"
+RESTORMER = "dt4ir.restormer"
 POLICY_STEP = "dt4ir.policy.step"
 # Inside a policy step run through a graph cache (the evaluator's on
 # CUDA): the replay of its CUDA graph (or, without CUDA, the same static

@@ -1,7 +1,7 @@
 """Plain functional restatement of the reference CSMRI pipeline's U-Net
 prior and fixed-parameter PnP-ADMM loop, on state dicts in the reference
 checkpoint's key layout, and of DPIR's DRUNet prior on its ``UNetRes``
-layout.
+layout, and of Restormer's on its ``restormer_arch.py`` layout.
 
 The parity oracle (:mod:`.torch_oracle`) denoises through these functions.
 They are written against the reference's documented behaviour
@@ -10,8 +10,10 @@ code with the port's models (``models/unet.py``), so that the yardstick
 the port is held to cannot move with the port. Counterpart of the JAX
 package's ``utils/torch_reference.py``: the same functions on the same
 seeds give the same tensors. The ARNIQA random state dict is
-``models/arniqa.py:random_arniqa_state_dict``. DRUNet has no JAX twin: the
-port's ``models/drunet.py`` is held to :func:`torch_drunet_forward`.
+``models/arniqa.py:random_arniqa_state_dict``. DRUNet and Restormer have
+no JAX twin: the port's ``models/drunet.py`` is held to
+:func:`torch_drunet_forward`, its ``models/restormer.py`` to
+:func:`torch_restormer_forward`.
 """
 from __future__ import annotations
 
@@ -162,6 +164,106 @@ def torch_drunet_denoise(sd, img, sigma):
         -1, 1, 1, 1).expand(n, 1, h, w)
     return torch.clamp(torch_drunet_forward(
         sd, torch.cat([img, noise_map], dim=1)), 0, 1)
+
+
+def torch_restormer_forward(sd: Mapping[str, torch.Tensor], x: torch.Tensor
+                            ) -> torch.Tensor:
+    """Restormer's forward (``swz30/Restormer``
+    ``basicsr/models/archs/restormer_arch.py:Restormer.forward``, BiasFree
+    LayerNorms, no biases, no dual-pixel task) on (B, in, H, W) float32
+    inputs, with TF32 off, on a state dict in its layout:
+    ``patch_embed.proj``; ``encoder_level{1,2,3}``, ``latent``,
+    ``decoder_level{3,2,1}`` and ``refinement``, each a list of blocks
+    (``norm1.body``, ``attn.{temperature,qkv,qkv_dwconv,project_out}``,
+    ``norm2.body``, ``ffn.{project_in,dwconv,project_out}``);
+    ``down{1_2,2_3,3_4}.body.0``; ``up{4_3,3_2,2_1}.body.0``;
+    ``reduce_chan_level{3,2}``; ``output``. The head counts come from the
+    temperatures' shapes. Departure: the global residual is the caller's
+    (:func:`torch_restormer_denoise` adds the image channel), since the
+    network's input holds the sigma map beside the image."""
+
+    def layer_norm(p, t):             # BiasFree_LayerNorm over channels
+        t3 = t.permute(0, 2, 3, 1)
+        var = t3.var(-1, keepdim=True, unbiased=False)
+        out = t3 / torch.sqrt(var + 1e-5) * sd[p + ".body.weight"]
+        return out.permute(0, 3, 1, 2)
+
+    def attention(p, t):
+        b, c, h, w = t.shape
+        temperature = sd[p + ".temperature"]
+        heads = temperature.shape[0]
+        qkv = F.conv2d(F.conv2d(t, sd[p + ".qkv.weight"]),
+                       sd[p + ".qkv_dwconv.weight"], padding=1,
+                       groups=3 * c)
+        q, k, v = (u.reshape(b, heads, c // heads, h * w)
+                   for u in qkv.chunk(3, dim=1))
+        q = F.normalize(q, dim=-1)
+        k = F.normalize(k, dim=-1)
+        attn = ((q @ k.transpose(-2, -1)) * temperature).softmax(dim=-1)
+        out = (attn @ v).reshape(b, c, h, w)
+        return F.conv2d(out, sd[p + ".project_out.weight"])
+
+    def feed_forward(p, t):
+        hidden = sd[p + ".project_in.weight"]
+        t = F.conv2d(F.conv2d(t, hidden), sd[p + ".dwconv.weight"],
+                     padding=1, groups=hidden.shape[0])
+        x1, x2 = t.chunk(2, dim=1)
+        return F.conv2d(F.gelu(x1) * x2, sd[p + ".project_out.weight"])
+
+    def level(name, t):
+        n = len({k.split(".")[1] for k in sd if k.startswith(name + ".")})
+        for i in range(n):
+            p = f"{name}.{i}"
+            t = t + attention(p + ".attn", layer_norm(p + ".norm1", t))
+            t = t + feed_forward(p + ".ffn", layer_norm(p + ".norm2", t))
+        return t
+
+    def down(name, t):
+        return F.pixel_unshuffle(
+            F.conv2d(t, sd[name + ".body.0.weight"], padding=1), 2)
+
+    def up(name, t):
+        return F.pixel_shuffle(
+            F.conv2d(t, sd[name + ".body.0.weight"], padding=1), 2)
+
+    with _no_tf32():
+        inp_enc_level1 = F.conv2d(x, sd["patch_embed.proj.weight"],
+                                  padding=1)
+        out_enc_level1 = level("encoder_level1", inp_enc_level1)
+        out_enc_level2 = level("encoder_level2",
+                               down("down1_2", out_enc_level1))
+        out_enc_level3 = level("encoder_level3",
+                               down("down2_3", out_enc_level2))
+        latent = level("latent", down("down3_4", out_enc_level3))
+        inp_dec_level3 = torch.cat([up("up4_3", latent), out_enc_level3], 1)
+        inp_dec_level3 = F.conv2d(inp_dec_level3,
+                                  sd["reduce_chan_level3.weight"])
+        out_dec_level3 = level("decoder_level3", inp_dec_level3)
+        inp_dec_level2 = torch.cat([up("up3_2", out_dec_level3),
+                                    out_enc_level2], 1)
+        inp_dec_level2 = F.conv2d(inp_dec_level2,
+                                  sd["reduce_chan_level2.weight"])
+        out_dec_level2 = level("decoder_level2", inp_dec_level2)
+        inp_dec_level1 = torch.cat([up("up2_1", out_dec_level2),
+                                    out_enc_level1], 1)
+        out_dec_level1 = level("decoder_level1", inp_dec_level1)
+        out_dec_level1 = level("refinement", out_dec_level1)
+        return F.conv2d(out_dec_level1, sd["output.weight"], padding=1)
+
+
+def torch_restormer_denoise(sd, img, sigma):
+    """Restormer as a plug-in prior. Departures from ``Restormer.forward``:
+    the network's input is the image and its sigma noise map (``sigma`` a
+    float or (B,)), as DPIR's and the DT4IR U-Net's, so that the policy's
+    sigma reaches the prior; the global residual adds the image channel;
+    the output is clamped to [0, 1], as the DT4IR prior's wrapper clamps
+    (noise.py:155-164)."""
+    n, _, h, w = img.shape
+    noise_map = torch.as_tensor(sigma, dtype=img.dtype,
+                                device=img.device).reshape(
+        -1, 1, 1, 1).expand(n, 1, h, w)
+    out = torch_restormer_forward(sd, torch.cat([img, noise_map], dim=1))
+    return torch.clamp(out + img, 0, 1)
 
 
 def torch_admm_rollout(sd, mat: Mapping[str, np.ndarray], mu: float,

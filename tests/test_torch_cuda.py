@@ -8,6 +8,7 @@ installed:
         tests/test_torch_cuda.py
 """
 import functools
+import json
 
 import numpy as np
 import pytest
@@ -21,13 +22,16 @@ from dt4image_restoration_tpu_torch.inference import (MCTS, DeviceMCTS,
                                                       Evaluator)
 from dt4image_restoration_tpu_torch.models import (DecisionTransformer,
                                                    DRUNetDenoiser,
-                                                   PriorGraphs, UNetDenoiser,
+                                                   PriorGraphs,
+                                                   RestormerDenoiser,
+                                                   UNetDenoiser,
                                                    fused_forward_takes,
                                                    init_dt_params,
                                                    make_dt_apply,
                                                    proxy_value_fn,
                                                    proxy_value_fn_batched,
                                                    random_drunet_state_dict,
+                                                   random_restormer_state_dict,
                                                    random_unet_state_dict)
 from dt4image_restoration_tpu_torch.ops import kernels
 from dt4image_restoration_tpu_torch.ops.kernels import attention as k4
@@ -36,6 +40,7 @@ from dt4image_restoration_tpu_torch.ops.kernels import kspace as k2
 from dt4image_restoration_tpu_torch.ops.kernels import layernorm as k5
 from dt4image_restoration_tpu_torch.ops.kernels import transformer as k3
 from dt4image_restoration_tpu_torch.ops.kernels import upsample_concat as k6
+from dt4image_restoration_tpu_torch.ops.kernels import mdta_gram as k7
 from dt4image_restoration_tpu_torch.utils.device import resolve_device
 
 pytestmark = pytest.mark.cuda
@@ -260,6 +265,105 @@ def test_upsample_concat_kernel_refuses(dev, case, error):
     with pytest.raises(error):
         k6.upsample_concat(a, skip)
     assert k6.launches == before
+
+
+# K7's (side, channels, heads) at Restormer's levels on 128x128 slices:
+# encoder levels 1-3 (decoder levels 3 and 2 alike), the latent, decoder
+# level 1 and the refinement.
+K7_LEVELS = {"level1": (128, 48, 1), "level2": (64, 96, 2),
+             "level3": (32, 192, 4), "latent": (16, 384, 8),
+             "decoder1": (128, 96, 1)}
+
+
+def _qkv(dev, b, side, ch, heads, seed, dtype=torch.bfloat16):
+    """A (B, side, side, 3C) qkv whose k leans on q, so that the maps are
+    far from uniform, and ``heads`` temperatures from 1 to 3."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, side, side, ch), generator=gen, device=dev)
+    k = q + torch.randn((b, side, side, ch), generator=gen, device=dev)
+    v = torch.randn((b, side, side, ch), generator=gen, device=dev)
+    tau = 1.0 + 2.0 * torch.rand((heads,), generator=gen, device=dev)
+    return torch.cat([q, k, v], dim=-1).to(dtype), tau
+
+
+@pytest.mark.parametrize("b", [1, 16, 63])
+@pytest.mark.parametrize("level", list(K7_LEVELS))
+def test_mdta_gram_kernel_matches_plain(dev, level, b):
+    """K7 in bfloat16 at every level's (c, h) against its plain version on
+    the same bfloat16 q and k (normalize, matmul, softmax in float32): the
+    kernel's Gram sums the pixels in float32 in another order, so within
+    1e-5 of maps whose entries are about 1/c; two launches agree bit for
+    bit, and each call counts one launch."""
+    side, ch, heads = K7_LEVELS[level]
+    qkv, tau = _qkv(dev, b, side, ch, heads, b)
+    before = k7.launches
+    got = k7.mdta_gram(qkv, tau, heads)
+    again = k7.mdta_gram(qkv, tau, heads)
+    torch.cuda.synchronize()
+    assert k7.launches == before + 2
+    ref = k7.mdta_gram_plain(qkv, tau, heads)
+    assert got.shape == (b, heads, ch // heads, ch // heads)
+    assert got.dtype == torch.float32
+    gap = float((got - ref).abs().max())
+    print(f"mdta_gram {level} B={b}: largest gap {gap:.3e}, map range "
+          f"{float(ref.min()):.4f}-{float(ref.max()):.4f}")
+    assert gap <= 1e-5
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("level", ["level1", "latent", "decoder1"])
+def test_mdta_gram_kernel_in_float32(dev, level):
+    """The float32 path (SIMT products, full float32) against the plain
+    version at B=2."""
+    side, ch, heads = K7_LEVELS[level]
+    qkv, tau = _qkv(dev, 2, side, ch, heads, 7,
+                     dtype=torch.float32)
+    got = k7.mdta_gram(qkv, tau, heads)
+    assert float((got - k7.mdta_gram_plain(qkv, tau, heads)).abs().max()) \
+        <= 1e-5
+
+
+def test_mdta_gram_kernel_in_cuda_graph_is_bit_equal_to_eager(dev):
+    """A replay of a captured call writes the eager call's maps bit for
+    bit: the split and the order of the partials' sum are fixed, with no
+    atomics, and the workspace comes from the graph's pool."""
+    side, ch, heads = K7_LEVELS["level1"]
+    qkv, tau = _qkv(dev, 63, side, ch, heads, 3)
+    want = k7.mdta_gram(qkv, tau, heads)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        k7.mdta_gram(qkv, tau, heads)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k7.mdta_gram(qkv, tau, heads)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("case,error", [
+    ("float16", TypeError), ("width", ValueError), ("strided", ValueError),
+    ("heads", ValueError), ("tau", ValueError)])
+def test_mdta_gram_kernel_refuses(dev, case, error):
+    qkv = torch.zeros((2, 8, 8, 3 * 48), device=dev, dtype=torch.bfloat16)
+    tau, heads = torch.ones(1, device=dev), 1
+    if case == "float16":
+        qkv = qkv.half()
+    elif case == "width":
+        qkv = torch.zeros((2, 8, 8, 3 * 40), device=dev)
+    elif case == "strided":
+        qkv = qkv.transpose(1, 2)
+    elif case == "heads":
+        heads = 5
+    else:
+        tau = torch.ones(2, device=dev)
+    before = k7.launches
+    with pytest.raises(error):
+        k7.mdta_gram(qkv, tau, heads)
+    assert k7.launches == before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1348,8 +1452,12 @@ def test_evaluator_policy_graph_is_captured_once_per_batch_and_weights(
 
 # --- the priors' forward as a CUDA graph ------------------------------------
 
-# The kernels of the priors' forward, by wrapper (DRUNet launches none).
-PRIOR_KERNELS = ("conv_block", "conv_block_bf16", "upsample_concat")
+# The kernels of the priors' forward, by wrapper (DRUNet launches none,
+# Restormer K7 alone).
+PRIOR_KERNELS = ("conv_block", "conv_block_bf16", "upsample_concat",
+                 "mdta_gram")
+# Restormer's blocks at its published widths, each one K7 call.
+RESTORMER_BLOCKS = 4 + 6 + 6 + 8 + 6 + 6 + 4 + 4
 
 
 def _prior_launches():
@@ -1361,15 +1469,19 @@ def _prior(dev, arch, dtype):
     if arch == "unet":
         den = UNetDenoiser(dtype=dtype)
         den.load_state_dict(random_unet_state_dict(0))
-    else:
+    elif arch == "drunet":
         den = DRUNetDenoiser(dtype=dtype)
         den.load_state_dict(random_drunet_state_dict(0))
+    else:
+        den = RestormerDenoiser(dtype=dtype)
+        den.load_state_dict(random_restormer_state_dict(0))
     return den.eval().requires_grad_(False).to(dev)
 
 
 @pytest.mark.parametrize("arch,dtype,batch", [
     ("unet", "float32", 1), ("unet", "float32", 63),
-    ("unet", "bfloat16", 63), ("drunet", "bfloat16", 4)])
+    ("unet", "bfloat16", 63), ("drunet", "bfloat16", 4),
+    ("restormer", "bfloat16", 63)])
 def test_prior_graph_is_bit_equal_to_the_eager_forward_on_card(
         dev, arch, dtype, batch):
     """Four calls of one shape through a graph cache (the first captures
@@ -1410,6 +1522,8 @@ def test_prior_graph_is_bit_equal_to_the_eager_forward_on_card(
         assert eager["upsample_concat"] == 4 * 4
         assert eager["conv_block_bf16" if dtype == "bfloat16"
                      else "conv_block"] == 2 * 4
+    if arch == "restormer":
+        assert eager["mdta_gram"] == RESTORMER_BLOCKS * 4
 
 
 def test_prior_graph_captures_anew_for_a_new_batch_or_new_weights_on_card(
@@ -1482,6 +1596,100 @@ def test_evaluator_prior_graph_matches_the_eager_prior_on_card(
           f"gap {gap:.3e}")
     assert gap == 0.0
     assert torch.equal(got["final_state"].x, want["final_state"].x)
+
+
+# cuDNN's layout transforms, by the names its kernels carry.
+LAYOUT_KERNELS = ("nchwtonhwc", "nhwctonchw")
+
+
+def _trace_events(prof, tmp_path):
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def test_restormer_forward_runs_no_layout_transform_on_card(dev, tmp_path):
+    """A traced bfloat16 Restormer forward at B=63 (published widths): no
+    kernel of cuDNN's NCHW<->NHWC transforms, around the pixel
+    (un)shuffles, the skip concats and the attention included; K7 once a
+    block. Prints the forward's largest kernels."""
+    den = _prior(dev, "restormer", "bfloat16")
+    x = torch.rand((63, 1, 128, 128), device=dev)
+    sigma = torch.full((63,), 0.05, device=dev)
+    with torch.no_grad():
+        den(x, sigma)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            den(x, sigma)
+            torch.cuda.synchronize()
+    kernels_run = [e for e in _trace_events(prof, tmp_path)
+                   if e.get("cat") == "kernel"]
+    by_name = {}
+    for e in kernels_run:
+        ms, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + float(e["dur"]) / 1e3, n + 1)
+    total = sum(ms for ms, _ in by_name.values())
+    print(f"Restormer bf16 B=63: {len(kernels_run)} kernels, {total:.3f} "
+          "ms of device time; largest:")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
+                                )[:14]:
+        print(f"  {ms:8.3f} ms {n:4d}x {name[:110]}")
+    layout = [n for n in by_name
+              if any(k in n.lower() for k in LAYOUT_KERNELS)]
+    assert not layout, layout
+    k7_runs = [e for e in kernels_run if "mdta_gram" in e["name"]]
+    assert len(k7_runs) == 2 * RESTORMER_BLOCKS      # two passes a block
+
+
+def test_restormer_span_holds_its_replayed_kernels_under_the_benchmarks_span(
+        dev, tmp_path):
+    """Through a graph cache, as in the evaluator: each replayed forward's
+    ``dt4ir.restormer`` span lies inside a ``portbench.unet`` span, and its
+    kernels, K7's among them, are the ones the benchmark counts under
+    ``portbench.unet`` (by the ``cudaGraphLaunch``'s correlation id)."""
+    from portbench.trace import WINDOW_SPAN, read_events, unet_span
+    from dt4image_restoration_tpu_torch.utils.profiling import (PRIOR_GRAPH,
+                                                                RESTORMER)
+    den = _prior(dev, "restormer", "bfloat16")
+    x = torch.rand((4, 1, 128, 128), device=dev)
+    sigma = torch.full((4,), 0.05, device=dev)
+    graphs, calls = PriorGraphs(), 3
+    with torch.no_grad(), graphs.scope():
+        den(x, sigma)                          # captures the graph
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with torch.profiler.record_function(WINDOW_SPAN):
+                for _ in range(calls):
+                    with unet_span():
+                        den(x, sigma)
+                torch.cuda.synchronize()
+    events = _trace_events(prof, tmp_path)
+    trace = read_events(events)
+    assert graphs.stats() == {"captures": 1, "replays": calls,
+                              "eager_prior_calls": 0}
+
+    def spans(name):
+        return [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                for e in events if e.get("name") == name
+                and e.get("cat") == "user_annotation"]
+    outer = spans("portbench.unet")
+    inner, graph = spans(RESTORMER), spans(PRIOR_GRAPH)
+    assert len(outer) == len(inner) == len(graph) == calls
+    for span, parents in ((s, outer) for s in inner):
+        assert sum(p[0] <= span[0] and span[1] <= p[1] for p in parents) == 1
+    for span in graph:
+        assert sum(p[0] <= span[0] and span[1] <= p[1] for p in inner) == 1
+    counted = set(trace.unet_device)
+    k7_ops = [(a, b) for a, b, name in trace.device if "mdta_gram" in name]
+    assert len(k7_ops) == 2 * RESTORMER_BLOCKS * calls
+    assert all(op in counted for op in k7_ops)
+    print(f"Restormer replayed under portbench.unet: {len(trace.device)} "
+          f"device ops, {trace.unet_device_s() * 1e3:.3f} ms")
 
 
 def test_validate_parity_selftest_on_card(dev, capsys):

@@ -40,6 +40,7 @@ from dt4image_restoration_tpu_torch.ops.kernels import layernorm as k5
 from dt4image_restoration_tpu_torch.ops.kernels import kspace as k2
 from dt4image_restoration_tpu_torch.ops.kernels import transformer as k3
 from dt4image_restoration_tpu_torch.ops.kernels import upsample_concat as k6
+from dt4image_restoration_tpu_torch.ops.kernels import mdta_gram as k7
 from dt4image_restoration_tpu_torch.models import (DecisionTransformer,
                                                    UNetDenoiser,
                                                    init_dt_params,
@@ -713,10 +714,12 @@ def test_plain_path_counts_no_launches(rng):
     k1.fused_conv_block(torch.zeros((1, 8, 8, 2), dtype=torch.bfloat16),
                         _t(ws), _t(bs))
     k6.upsample_concat(torch.zeros((1, 4, 3, 4)), x)
+    k7.mdta_gram(torch.zeros((1, 4, 4, 48)), torch.ones(1), 1)
     assert kernels.launch_counts() == {"conv_block": 0,
                                        "conv_block_bf16": 0, "kspace": 0,
                                        "dt_decode": 0, "attention": 0,
-                                       "layernorm": 0, "upsample_concat": 0}
+                                       "layernorm": 0, "upsample_concat": 0,
+                                       "mdta_gram": 0}
 
 
 def test_unet_forward_on_cpu_counts_no_launches():
