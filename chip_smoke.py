@@ -115,7 +115,10 @@ views the per-op forward hands it, at 18 tokens and at 90
 timed at the decoder's four levels at 1, 16 and 63 slices in both dtypes
 against its byte bound and ``F.interpolate`` with ``torch.cat``, and must
 equal its plain version bit for bit; every path that runs the U-Net
-launches it. The per_op_forward phase times one per-op policy forward
+launches it. K7 (Restormer's attention maps) is timed at Restormer's five
+level shapes at 1, 16 and 63 slices, K8 (its LayerNorm) at the five shapes
+at 63 slices against its byte bound and the native_layer_norm chain the
+port ran before; the eval_restormer path launches K8 twice a block. The per_op_forward phase times one per-op policy forward
 at the search's shape eagerly and from a CUDA graph and counts the kernels
 it runs with ``torch.profiler``. The run fails if the build of K1 (either
 dtype) or K3 spills registers, or if the bfloat16 K1's SASS shows no wgmma
@@ -203,6 +206,7 @@ REPLACES = {
     "upsample_concat": "none (dt4image_restoration_tpu/ops/image.py:56)",
     # No Pallas kernel: the JAX package has no Restormer.
     "mdta_gram": "none (Restormer's attention map; no JAX prior)",
+    "biasfree_layernorm": "none (Restormer's LayerNorm; no JAX prior)",
 }
 # K6 repeats F.interpolate's arithmetic: bit for bit, no tolerance.
 TOLERANCE = {"conv_block": 1e-4, "kspace": 1e-6, "dt_decode": 1e-4,
@@ -240,7 +244,17 @@ SUMMARY_SHAPES = {
     # Restormer's five kinds of level, in bfloat16.
     "mdta_gram": tuple(f"{lv} B={EVAL_BATCH}" for lv in (
         "level1", "level2", "level3", "latent", "decoder1")),
+    "biasfree_layernorm": tuple(f"{lv} B={EVAL_BATCH}" for lv in (
+        "level1", "level2", "level3", "latent", "decoder1")),
 }
+# K8's calls a Restormer forward at each level shape (two a block): encoder
+# level 1; levels 2 and 3, encoder and decoder; the latent; decoder level 1
+# and the refinement.
+K8_CALLS = {"level1": 8, "level2": 24, "level3": 24, "latent": 16,
+            "decoder1": 16}
+# Device memory the rotated copies of K8's input fill at least (twice the
+# H100's 50 MB L2), so that a timed launch reads device memory.
+L2_FLUSH_BYTES = 100e6
 # K7's (side, channels, heads) at Restormer's levels on 128x128 slices
 # (decoder levels 3 and 2 have the shapes of encoder levels 3 and 2; the
 # refinement has decoder level 1's).
@@ -417,6 +431,8 @@ def phase_kernels(torch, dev):
         random_unet_state_dict)
     from dt4image_restoration_tpu_torch.models.decision_transformer import (
         LN_EPS as ln_eps)
+    from dt4image_restoration_tpu_torch.models.restormer import (
+        LN_EPS as restormer_eps)
     from dt4image_restoration_tpu_torch.ops.csmri import kspace_consistency
     from dt4image_restoration_tpu_torch.ops.kernels import attention as k4
     from dt4image_restoration_tpu_torch.ops.kernels import conv_block as k1
@@ -426,6 +442,8 @@ def phase_kernels(torch, dev):
     from dt4image_restoration_tpu_torch.ops.kernels import (
         upsample_concat as k6)
     from dt4image_restoration_tpu_torch.ops.kernels import mdta_gram as k7
+    from dt4image_restoration_tpu_torch.ops.kernels import (
+        biasfree_layernorm as k8)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     unet = UNetDenoiser().eval().requires_grad_(False)
@@ -598,6 +616,52 @@ def phase_kernels(torch, dev):
                    call_ms=time_ms(torch, lambda: k7.mdta_gram(
                        qkv, tau, heads), 50),
                    peak=peak_k7, peak_name="bf16")
+
+    # K8 at Restormer's level shapes at the evaluation batch, in bfloat16
+    # (the configuration's dtype), against its plain version (the float32
+    # formula rounded once; the two may differ by one bfloat16 step).
+    # library_ms is the chain the port ran before K8 (native_layer_norm,
+    # then the mean's share by addcmul), the yardstick only. kernel_ms,
+    # plain_ms and library_ms are device times from CUDA graphs whose
+    # launches take the input in turn from copies that fill twice the L2
+    # (device memory, as the bound assumes); warm_ms is K8 on one input,
+    # which at level 3 and the latent (25-50 MB of traffic) stays in the
+    # 50 MB L2 and may read above the bound. The bound: x read once and y
+    # written once, and the float32 scale.
+    for lv, (side, ch, _) in RESTORMER_LEVELS.items():
+        shape = (EVAL_BATCH, side, side, ch)
+        x = (torch.randn(shape, generator=gen, device=dev) + 0.5) \
+            .to(torch.bfloat16)
+        w = 1.0 + 0.05 * torch.randn((ch,), generator=gen, device=dev)
+        w16 = w.to(torch.bfloat16)
+        copies = [x] + [x.clone() for _ in range(
+            max(1, math.ceil(L2_FLUSH_BYTES / (x.numel() * 2))) - 1)]
+        turn = itertools.cycle(copies)
+        got = k8.biasfree_layernorm(x, w, restormer_eps)
+        ref = k8.biasfree_layernorm_plain(x, w, restormer_eps)
+
+        def library(t):
+            out, mean, rstd = torch.native_layer_norm(t, (ch,), w16, None,
+                                                      restormer_eps)
+            return torch.addcmul(out, (mean * rstd).to(torch.bfloat16), w16)
+
+        record("biasfree_layernorm", f"{lv} B={EVAL_BATCH}", got.float(),
+               ref.float(),
+               time_graph_ms(torch, lambda: k8.biasfree_layernorm(
+                   next(turn), w, restormer_eps), launches=20, replays=5),
+               time_graph_ms(torch, lambda: k8.biasfree_layernorm_plain(
+                   next(turn), w, restormer_eps), launches=10, replays=3),
+               time_graph_ms(torch, lambda: library(next(turn)),
+                             launches=20, replays=5),
+               5.0 * x.numel(), 4.0 * x.numel() + 4.0 * ch,
+               call_ms=time_ms(torch, lambda: k8.biasfree_layernorm(
+                   x, w, restormer_eps), 20),
+               tolerance=2.0 ** -7 * float(ref.float().abs().max()),
+               warm_ms=time_graph_ms(torch, lambda: k8.biasfree_layernorm(
+                   x, w, restormer_eps), launches=20, replays=5),
+               input_copies=len(copies), calls_a_forward=K8_CALLS[lv],
+               off_one_step_share=float((got != ref).float().mean()))
+        del copies, turn
 
     # K1 in bfloat16 at the same blocks, at the batches of the bfloat16
     # paths: one slice, the search's rollouts, the evaluation batch, the
@@ -1084,8 +1148,8 @@ def phase_eval_bf16(torch, dev, ckpt_dir, dirs, f32):
 def phase_eval_restormer(torch, dev, ckpt_dir, dirs):
     """Restormer at its published widths (random weights, as the CLI draws
     them without a file) as the prior of a bfloat16 evaluation of the
-    first directory's 7 slices x 30 steps: K7 in every block, K2, K3; the
-    prior's forward replayed from one graph."""
+    first directory's 7 slices x 30 steps: K7 in every block, K8 in every
+    LayerNorm, K2, K3; the prior's forward replayed from one graph."""
     from dt4image_restoration_tpu_torch.config import ModelConfig
     from dt4image_restoration_tpu_torch.inference import Evaluator
     from dt4image_restoration_tpu_torch.utils.loaders import load_denoiser
@@ -2574,7 +2638,8 @@ def main() -> int:
                        ("eval", unet + ("dt_decode",)),
                        ("eval_bf16", unet16 + ("dt_decode",)),
                        ("eval_restormer", ("kspace", "dt_decode",
-                                           "mdta_gram")),
+                                           "mdta_gram",
+                                           "biasfree_layernorm")),
                        ("record", unet),
                        ("mcts", search), ("mcts_device", search),
                        ("mcts_expand", search),
@@ -2598,6 +2663,12 @@ def main() -> int:
         missing = [k for k in want if paths[path][k] <= 0]
         if missing:
             raise AssertionError(f"the {path} path launched no {missing}")
+    # Restormer's LayerNorms all run K8: two a block, K7 one a block.
+    restormer = paths["eval_restormer"]
+    if restormer["biasfree_layernorm"] != 2 * restormer["mdta_gram"]:
+        raise AssertionError(f"eval_restormer launched K8 "
+                             f"{restormer['biasfree_layernorm']} times "
+                             f"beside {restormer['mdta_gram']} K7 calls")
     # Each dtype runs its own K1 and never the other's.
     mixed = [p for p, c in paths.items()
              if c["conv_block" if p.endswith("_bf16")

@@ -29,9 +29,10 @@ Layout: every activation from the patch embedding to the output conv is a
 contiguous (B, H, W, C) tensor, channels-last memory. The 3x3 and
 depthwise convs see it as a channels-last (B, C, H, W) view (parameters
 channels-last too), so cuDNN runs them with no layout transform; the 1x1
-convs are products over the last axis; the LayerNorms, the pixel
-(un)shuffles and the skip concats work on the last axis; the attention
-map (kernel K7, ``ops/kernels/mdta_gram.py``) reads q and k in place; the
+convs are products over the last axis; the LayerNorms (kernel K8,
+``ops/kernels/biasfree_layernorm.py``), the pixel (un)shuffles and the
+skip concats work on the last axis; the attention map (kernel K7,
+``ops/kernels/mdta_gram.py``) reads q and k in place; the
 one-channel output conv runs as a conv of 8 channels, 7 of them zero
 weights (cuDNN's bfloat16 engines transpose a one-channel conv's input to
 NCHW). So no tensor is ever transposed between layouts. Two products are
@@ -42,8 +43,9 @@ is one product of v with ``W blockdiag(A)``, made per sample in float32
 
 ``dtype`` is the compute dtype (float32 parameters, one cached copy each
 in the compute dtype, :mod:`.precision`): the convs, products, GELU gate
-and residual stream run in it; the LayerNorm statistics (``native_layer_
-norm``'s mean and 1/std), the attention map and its softmax are float32.
+and residual stream run in it; the LayerNorms take their statistics and
+their float32 weight in float32 and round once to the compute dtype; the
+attention map and its softmax are float32.
 ``RestormerDenoiser`` concatenates the sigma map, adds the image, casts
 back and clamps in float32.
 """
@@ -55,6 +57,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.kernels.biasfree_layernorm import biasfree_layernorm
 from ..ops.kernels.mdta_gram import mdta_gram
 from ..utils.profiling import RESTORMER, annotate
 from .precision import cast_params, compute_dtype, conv2d
@@ -148,20 +151,16 @@ def pixel_shuffle(x: torch.Tensor) -> torch.Tensor:
 
 class BiasFreeLayerNorm(nn.Module):
     """``x / sqrt(var(x) + eps) * weight`` over the last axis, the variance
-    about the mean and ``x`` itself not centred. Computed as
-    ``native_layer_norm``'s centred output (float32 statistics, one pass)
-    plus the mean's share ``mean / std * weight``."""
-    bias = None     # read by precision.cast_params
+    about the mean and ``x`` itself not centred: kernel K8 on CUDA (float32
+    statistics and the float32 weight, one pass, the result rounded once to
+    the compute dtype), its plain version on the CPU."""
 
     def __init__(self, dim: int):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        w = cast_params(self, dtype)[0]
-        out, mean, rstd = torch.native_layer_norm(x, (x.shape[-1],), w,
-                                                  None, LN_EPS)
-        return torch.addcmul(out, (mean * rstd).to(dtype), w)
+        return biasfree_layernorm(x.to(dtype), self.weight, LN_EPS)
 
 
 class LayerNorm(nn.Module):

@@ -12,20 +12,22 @@ compiled on its first CUDA call (see :mod:`._build`).
        and skip concat, which the JAX package leaves to XLA)
     K7 mdta_gram (no TPU kernel: the JAX package has no Restormer; the
        attention map of Restormer's transposed attention)
+    K8 biasfree_layernorm (no TPU kernel: Restormer's BiasFree LayerNorm)
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from . import (attention, conv_block, conv_block_bf16, kspace, layernorm,
-               mdta_gram, transformer, upsample_concat)
+from . import (attention, biasfree_layernorm, conv_block, conv_block_bf16,
+               kspace, layernorm, mdta_gram, transformer, upsample_concat)
 from ._build import add_launches, tally_launches  # noqa: F401 (graphs)
 
 KERNEL_MODULES = {"conv_block": conv_block,
                   "conv_block_bf16": conv_block_bf16, "kspace": kspace,
                   "dt_decode": transformer, "attention": attention,
                   "layernorm": layernorm, "upsample_concat": upsample_concat,
-                  "mdta_gram": mdta_gram}
+                  "mdta_gram": mdta_gram,
+                  "biasfree_layernorm": biasfree_layernorm}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -31,7 +31,8 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 KERNEL_SOURCES = ("kspace", "conv_block", "conv_block_bf16", "dt_decode",
-                  "attention", "layernorm", "upsample_concat", "mdta_gram")
+                  "attention", "layernorm", "upsample_concat", "mdta_gram",
+                  "biasfree_layernorm")
 HOST_SOURCES = ("gather_scale",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

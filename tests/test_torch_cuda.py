@@ -41,6 +41,8 @@ from dt4image_restoration_tpu_torch.ops.kernels import layernorm as k5
 from dt4image_restoration_tpu_torch.ops.kernels import transformer as k3
 from dt4image_restoration_tpu_torch.ops.kernels import upsample_concat as k6
 from dt4image_restoration_tpu_torch.ops.kernels import mdta_gram as k7
+from dt4image_restoration_tpu_torch.ops.kernels import (
+    biasfree_layernorm as k8)
 from dt4image_restoration_tpu_torch.utils.device import resolve_device
 
 pytestmark = pytest.mark.cuda
@@ -364,6 +366,113 @@ def test_mdta_gram_kernel_refuses(dev, case, error):
     with pytest.raises(error):
         k7.mdta_gram(qkv, tau, heads)
     assert k7.launches == before
+
+
+def _ln_inputs(dev, shape, dtype, seed):
+    """A (..., C) input off centre (mean 0.5, so that the mean's share
+    counts) and a (C,) float32 scale around 1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=dev) + 0.5
+    w = 1.0 + 0.1 * torch.randn((shape[-1],), generator=gen, device=dev)
+    return x.to(dtype), w
+
+
+def _bf16_ulp(t):
+    """The spacing of bfloat16 numbers (8 significant bits) at |t|."""
+    return torch.ldexp(torch.ones_like(t), torch.frexp(t)[1] - 8)
+
+
+def _assert_ln_close(got, x, w):
+    """bfloat16: within one bfloat16 step of the float32 formula on the
+    same input (the kernel rounds its float32 result once); float32:
+    within 1e-6 relative of the formula (the sums taken in another
+    order)."""
+    ref = k8.biasfree_layernorm_plain(x.float(), w, 1e-5)
+    gap = (got.float() - ref).abs()
+    if got.dtype == torch.bfloat16:
+        assert bool((gap <= _bf16_ulp(ref)).all()), float(gap.max())
+    else:
+        assert bool((gap <= 1e-6 * ref.abs()).all()), \
+            float((gap / ref.abs()).max())
+    return float(gap.max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 16, 63])
+@pytest.mark.parametrize("level", list(K7_LEVELS))
+def test_biasfree_layernorm_kernel_matches_plain(dev, level, b, dtype):
+    """K8 at every Restormer level's shape (K7's) against the float32
+    formula on the same input; each call counts one launch."""
+    side, ch, _ = K7_LEVELS[level]
+    x, w = _ln_inputs(dev, (b, side, side, ch), dtype, b)
+    before = k8.launches
+    got = k8.biasfree_layernorm(x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert k8.launches == before + 1
+    assert got.shape == x.shape and got.dtype == dtype
+    gap = _assert_ln_close(got, x, w)
+    print(f"biasfree_layernorm {level} B={b} {dtype}: largest gap "
+          f"{gap:.3e}")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [16, 128, 200])
+def test_biasfree_layernorm_kernel_takes_other_widths(dev, c, dtype):
+    """Widths outside Restormer's (the tests' Restormer runs 16-128) go
+    through the generic build, on a row count that leaves the last CTA
+    partial."""
+    x, w = _ln_inputs(dev, (3, 7, 5, c), dtype, c)
+    _assert_ln_close(k8.biasfree_layernorm(x, w, 1e-5), x, w)
+
+
+def test_biasfree_layernorm_kernel_in_cuda_graph_is_bit_equal_to_eager(dev):
+    """A replay of a captured call writes the eager call's output bit for
+    bit."""
+    side, ch, _ = K7_LEVELS["decoder1"]
+    x, w = _ln_inputs(dev, (16, side, side, ch), torch.bfloat16, 3)
+    want = k8.biasfree_layernorm(x, w, 1e-5)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        k8.biasfree_layernorm(x, w, 1e-5)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k8.biasfree_layernorm(x, w, 1e-5)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("case,error", [
+    ("strided", ValueError), ("float16", TypeError), ("weight", ValueError),
+    ("width", ValueError), ("devices", ValueError), ("wide", ValueError),
+    ("unaligned", ValueError)])
+def test_biasfree_layernorm_kernel_refuses(dev, case, error):
+    x = torch.zeros((2, 8, 8, 48), device=dev, dtype=torch.bfloat16)
+    w = torch.ones(48, device=dev)
+    if case == "strided":
+        x = x.transpose(1, 2)
+    elif case == "float16":
+        x = x.half()
+    elif case == "weight":
+        w = torch.ones(96, device=dev)
+    elif case == "width":
+        x, w = torch.zeros((2, 8, 8, 44), device=dev), torch.ones(44,
+                                                                  device=dev)
+    elif case == "devices":
+        w = w.cpu()
+    elif case == "wide":
+        x, w = torch.zeros((2, 4, 392), device=dev), torch.ones(392,
+                                                                device=dev)
+    else:
+        x = torch.zeros(2 * 8 * 8 * 48 + 1, device=dev,
+                        dtype=torch.bfloat16)[1:].view(2, 8, 8, 48)
+    before = k8.launches
+    with pytest.raises(error):
+        k8.biasfree_layernorm(x, w, 1e-5)
+    assert k8.launches == before
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -1453,10 +1562,11 @@ def test_evaluator_policy_graph_is_captured_once_per_batch_and_weights(
 # --- the priors' forward as a CUDA graph ------------------------------------
 
 # The kernels of the priors' forward, by wrapper (DRUNet launches none,
-# Restormer K7 alone).
+# Restormer K7 and K8).
 PRIOR_KERNELS = ("conv_block", "conv_block_bf16", "upsample_concat",
-                 "mdta_gram")
-# Restormer's blocks at its published widths, each one K7 call.
+                 "mdta_gram", "biasfree_layernorm")
+# Restormer's blocks at its published widths, each one K7 call and two K8
+# calls.
 RESTORMER_BLOCKS = 4 + 6 + 6 + 8 + 6 + 6 + 4 + 4
 
 
@@ -1524,6 +1634,7 @@ def test_prior_graph_is_bit_equal_to_the_eager_forward_on_card(
                      else "conv_block"] == 2 * 4
     if arch == "restormer":
         assert eager["mdta_gram"] == RESTORMER_BLOCKS * 4
+        assert eager["biasfree_layernorm"] == 2 * RESTORMER_BLOCKS * 4
 
 
 def test_prior_graph_captures_anew_for_a_new_batch_or_new_weights_on_card(
@@ -1642,6 +1753,45 @@ def test_restormer_forward_runs_no_layout_transform_on_card(dev, tmp_path):
     assert not layout, layout
     k7_runs = [e for e in kernels_run if "mdta_gram" in e["name"]]
     assert len(k7_runs) == 2 * RESTORMER_BLOCKS      # two passes a block
+    # The LayerNorms: K8 alone, PyTorch's LayerNorm kernel nowhere.
+    k8_runs = [e for e in kernels_run if "biasfree_layernorm" in e["name"]]
+    assert len(k8_runs) == 2 * RESTORMER_BLOCKS
+    assert not [n for n in by_name if "layer_norm" in n.lower()]
+
+
+# tests/test_torch_restormer.py's bfloat16 band against the float32 plain
+# forward: the largest pixel gap and the RMS gap.
+RESTORMER_BF16_MAX, RESTORMER_BF16_RMS = 0.02, 0.005
+
+
+def test_restormer_bfloat16_forward_on_card_runs_k8_in_every_layernorm(dev):
+    """A bfloat16 Restormer forward at its published widths (two slices,
+    128^2): 88 K8 launches (two a block) beside 44 K7 calls, and the answer
+    within the CPU tests' bfloat16 band of the plain float32 forward
+    (``utils/torch_reference.py``, TF32 off) on the same weights."""
+    from dt4image_restoration_tpu_torch.utils.torch_reference import (
+        torch_restormer_denoise)
+    den = _prior(dev, "restormer", "bfloat16")
+    sd = {k.removeprefix("net."): v.to(dev)
+          for k, v in random_restormer_state_dict(0).items()}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.rand((2, 1, 128, 128), generator=gen, device=dev)
+    sigma = torch.tensor([0.03, 0.1], device=dev)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        got = den(x, sigma)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = torch_restormer_denoise(sd, x, sigma)
+    assert counts["biasfree_layernorm"] == 2 * RESTORMER_BLOCKS
+    assert counts["mdta_gram"] == RESTORMER_BLOCKS
+    gap = got - want
+    largest, rms = float(gap.abs().max()), float(gap.pow(2).mean().sqrt())
+    print(f"Restormer bf16 on card vs float32 plain: largest {largest:.4f}, "
+          f"RMS {rms:.5f}; the prior moves the image by RMS "
+          f"{float((want - x).pow(2).mean().sqrt()):.4f}")
+    assert largest <= RESTORMER_BF16_MAX
+    assert rms <= RESTORMER_BF16_RMS
 
 
 def test_restormer_span_holds_its_replayed_kernels_under_the_benchmarks_span(
@@ -1688,6 +1838,10 @@ def test_restormer_span_holds_its_replayed_kernels_under_the_benchmarks_span(
     k7_ops = [(a, b) for a, b, name in trace.device if "mdta_gram" in name]
     assert len(k7_ops) == 2 * RESTORMER_BLOCKS * calls
     assert all(op in counted for op in k7_ops)
+    k8_ops = [(a, b) for a, b, name in trace.device
+              if "biasfree_layernorm" in name]
+    assert len(k8_ops) == 2 * RESTORMER_BLOCKS * calls
+    assert all(op in counted for op in k8_ops)
     print(f"Restormer replayed under portbench.unet: {len(trace.device)} "
           f"device ops, {trace.unet_device_s() * 1e3:.3f} ms")
 

@@ -1,5 +1,6 @@
 """The port's kernels (K1 conv_block, K2 kspace, K3 dt_decode, K4 attention,
-K5 layernorm, K6 upsample_concat).
+K5 layernorm, K6 upsample_concat; K7 and K8, Restormer's, by their plain
+versions and launch counts here and in tests/test_torch_restormer.py).
 
 On the CPU each wrapper runs its plain PyTorch version, which is held here
 against the JAX package's Pallas kernel run in interpret mode on the same
@@ -34,6 +35,8 @@ from dt4image_restoration_tpu.ops.pallas.transformer import (
 from dt4image_restoration_tpu_torch.config import ModelConfig
 from dt4image_restoration_tpu_torch.ops import kernels
 from dt4image_restoration_tpu_torch.ops.kernels import attention as k4
+from dt4image_restoration_tpu_torch.ops.kernels import (
+    biasfree_layernorm as k8)
 from dt4image_restoration_tpu_torch.ops.kernels import conv_block as k1
 from dt4image_restoration_tpu_torch.ops.kernels import conv_block_bf16 as kb
 from dt4image_restoration_tpu_torch.ops.kernels import layernorm as k5
@@ -702,6 +705,34 @@ def test_upsample_concat_refuses_unsupported_device():
         k6.upsample_concat(a, torch.empty((1, 2, 8, 8), device="meta"))
 
 
+# --- K8 -------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [16, 24, 48, 96])
+def test_biasfree_layernorm_on_the_cpu_is_its_plain_version(rng, c, dtype):
+    """On the CPU the wrapper is the plain version bit for bit, in the
+    input's dtype: the float32 formula rounded once, counting no launch."""
+    x = torch.from_numpy(rng.standard_normal((2, 3, 5, c))
+                         .astype(np.float32) + 0.5).to(dtype)
+    w = torch.from_numpy(1.0 + 0.1 * rng.standard_normal(c)
+                         .astype(np.float32))
+    kernels.reset_launch_counts()
+    got = k8.biasfree_layernorm(x, w, 1e-5)
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, k8.biasfree_layernorm_plain(x, w, 1e-5))
+    xf = x.float()
+    want = xf / torch.sqrt(xf.var(-1, keepdim=True, unbiased=False)
+                           + 1e-5) * w
+    assert torch.equal(got, want.to(dtype))
+    assert k8.launches == 0
+
+
+def test_biasfree_layernorm_refuses_unsupported_device():
+    x = torch.empty((1, 4, 4, 48), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        k8.biasfree_layernorm(x, torch.ones(48, device="meta"), 1e-5)
+
+
 # --- launch counts --------------------------------------------------------
 
 def test_plain_path_counts_no_launches(rng):
@@ -715,11 +746,13 @@ def test_plain_path_counts_no_launches(rng):
                         _t(ws), _t(bs))
     k6.upsample_concat(torch.zeros((1, 4, 3, 4)), x)
     k7.mdta_gram(torch.zeros((1, 4, 4, 48)), torch.ones(1), 1)
+    k8.biasfree_layernorm(torch.zeros((1, 4, 4, 48)), torch.ones(48), 1e-5)
     assert kernels.launch_counts() == {"conv_block": 0,
                                        "conv_block_bf16": 0, "kspace": 0,
                                        "dt_decode": 0, "attention": 0,
                                        "layernorm": 0, "upsample_concat": 0,
-                                       "mdta_gram": 0}
+                                       "mdta_gram": 0,
+                                       "biasfree_layernorm": 0}
 
 
 def test_unet_forward_on_cpu_counts_no_launches():

@@ -6,10 +6,10 @@ loader and the command line, the evaluator driving it, and its span.
 
 Small widths (dim 16, blocks 1-1-1-2, one refinement block, heads 1-2-2-4,
 so heads 16 and 32 wide) on 32^2 and 48^2 slices. Tolerances: float32 to
-1e-5 (the same products in another order, and the LayerNorm as a centred
-norm plus the mean's share; the readings are under 1e-6); bfloat16 within
-0.02 of the largest pixel and 0.005 RMS, from 8-bit mantissas over the ~40
-products a pixel passes (the readings are 0.004 and 0.0009), while the
+1e-5 (the same products in another order; the readings are under 1e-6);
+bfloat16 within 0.02 of the largest pixel and 0.005 RMS, from 8-bit
+mantissas over the ~40 products a pixel passes (the readings are 0.004
+and 0.0009), while the
 refinement block left out reads 0.039 and 0.0098, and the bfloat16 output
 must differ from the float32 one by 1e-4 RMS or more, so that a path that
 computes float32 under ``dtype="bfloat16"`` fails too."""
@@ -28,6 +28,8 @@ from dt4image_restoration_tpu_torch.models import (DecisionTransformer,
                                                    random_restormer_state_dict)
 from dt4image_restoration_tpu_torch.models.restormer import (
     BiasFreeLayerNorm, pixel_shuffle, pixel_unshuffle)
+from dt4image_restoration_tpu_torch.ops.kernels.biasfree_layernorm import (
+    biasfree_layernorm_plain)
 from dt4image_restoration_tpu_torch.ops.kernels.mdta_gram import (
     mdta_gram, mdta_gram_plain)
 from dt4image_restoration_tpu_torch.utils import loaders
@@ -143,15 +145,25 @@ def test_the_attention_maps_plain_version_is_normalize_matmul_softmax(
 def test_the_biasfree_layernorm_is_not_centred():
     """``x / sqrt(var(x) + eps) * w``: a constant offset of the channels
     leaves the variance and moves the output by offset / std * w, where a
-    centred LayerNorm would not move."""
+    centred LayerNorm would not move. The module and K8's plain version
+    (the module's path on the CPU) both equal the formula to 1e-6 in
+    float32, shifted input too."""
     ln = BiasFreeLayerNorm(24)
     with torch.no_grad():
         ln.weight.copy_(1.0 + 0.1 * torch.randn(24))
     x = torch.randn(2, 5, 7, 24)
-    want = x / torch.sqrt(x.var(-1, keepdim=True, unbiased=False) + 1e-5) \
-        * ln.weight
+
+    def formula(t):
+        return t / torch.sqrt(t.var(-1, keepdim=True, unbiased=False)
+                              + 1e-5) * ln.weight
+    want = formula(x)
     with torch.no_grad():
         got, moved = ln(x, torch.float32), ln(x + 3.0, torch.float32)
+        for t, out in ((x, got), (x + 3.0, moved)):
+            torch.testing.assert_close(out, formula(t), rtol=0, atol=1e-6)
+            torch.testing.assert_close(
+                biasfree_layernorm_plain(t, ln.weight, 1e-5), formula(t),
+                rtol=0, atol=1e-6)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     shift = 3.0 / torch.sqrt(x.var(-1, keepdim=True, unbiased=False)
                              + 1e-5) * ln.weight
